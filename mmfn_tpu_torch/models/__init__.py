@@ -1,0 +1,3 @@
+"""The MMFN model family (img, vec, rad) as torch modules."""
+
+from mmfn_tpu_torch.models.mmfn import MMFN, build_model  # noqa: F401

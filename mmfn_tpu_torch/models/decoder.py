@@ -1,0 +1,32 @@
+"""Autoregressive GRU waypoint decoder.
+
+The reference keeps the cell and the output head at the top of the model
+(keys ``decoder.*`` and ``output.*``), so this is a function over the two
+modules rather than a module of its own. ``nn.GRUCell`` orders its gates
+[r, z, n], as the JAX package's cell does.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def decode_waypoints(cell: nn.GRUCell, output: nn.Linear, z: torch.Tensor,
+                     target_point: torch.Tensor, pred_len: int = 4,
+                     input_mode: str = "add") -> torch.Tensor:
+    """z (B, hidden) + target point (B, 2) -> (B, pred_len, 2) waypoints.
+
+    ``input_mode='add'`` feeds x + target_point into the GRU (MMFN,
+    TransFuser); ``'cat'`` concatenates them (AIM). Each step integrates the
+    predicted delta: x_{k+1} = x_k + output(h_{k+1})."""
+    x = z.new_zeros(z.shape[0], 2)
+    tp = target_point.to(z.dtype)
+    h = z
+    waypoints = []
+    for _ in range(pred_len):
+        x_in = x + tp if input_mode == "add" else torch.cat([x, tp], dim=1)
+        h = cell(x_in, h)
+        x = x + output(h)
+        waypoints.append(x)
+    return torch.stack(waypoints, dim=1)
