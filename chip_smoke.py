@@ -9,11 +9,16 @@ Run from the root of the repository, on a machine with one NVIDIA Hopper GPU
 Phases, in order; any failure exits non-zero before the last line:
   1. build both CUDA kernels from mmfn_tpu_torch/csrc (nvcc, in parallel);
   2. BEV histogram kernel == its plain PyTorch version, exactly, at
-     1 x 65,536 f16 (serving) and 8 x 65,536 f32 (bench) points, on bin
-     edges, on clouds with no valid rows and at N not a multiple of 256;
+     1 x 65,536 f16 (serving), 8 x 65,536 f32 (bench) and 8 x 65,536 f16
+     points, on bin edges, on clouds with no valid rows, at N not a multiple
+     of 256, at N = 5 and N = 0, and on a cloud with all 65,536 points in
+     one cell (1.0 there, 0 elsewhere);
   3. fused attention kernel vs its plain PyTorch version at every main-path
      shape (T in {192, 256}, D in {16, 32, 64, 128}, B in {1, 8}, H = 4),
-     within rtol/atol 1e-5;
+     at T = 128, a ragged T, T = 1 and T = 3072, each with q, k, v
+     contiguous and in the projection layout the model passes (strided
+     views of a (B, T, H*D) tensor), within rtol/atol 1e-5; the result must
+     be the transposed view of a contiguous (B, T, H, D) buffer;
   4. serve full-width MMFN-rad (GlobalConfig defaults: n_layer 8, 256 px,
      64 lanes, 2 x 32,768 points per tick, attn_impl "pallas"; weights from a
      seeded generator) through TorchPipeline: 3 batch-1 requests and one
@@ -24,10 +29,12 @@ Phases, in order; any failure exits non-zero before the last line:
      versions of everything on the CPU;
   5. time batch-1 request latency and batch-8 frames/s, profile both
      (torch.profiler: device busy time, idle share, top kernels), and time
-     each kernel at its main-path shapes (CUDA events, after warm-up) beside
-     its plain version, SDPA for attention, and its bound on the H100.
+     each kernel at its main-path shapes (CUDA events, after warm-up; the
+     attention in the projection layout) beside its plain version, SDPA for
+     attention, and its bounds on the H100.
 
-Output: JSON lines per phase, then a ``kernels`` line, the GPU's name and
+Output: JSON lines per phase (the summary has the device ops per batch-1
+forward), then a ``kernels`` line, the GPU's name and
 power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 TF32 is off for matmuls and cuDNN convolutions throughout.
@@ -44,15 +51,20 @@ import time
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the f32
-# rate of the CUDA cores (no tensor cores).
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the f32
+# rate of the CUDA cores, and the dense TF32 tensor-core rate over the three
+# TF32 products that one f32-accurate product takes ("3xTF32", kernel 2).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 SEED = 0
 ATTN_TOL = dict(rtol=1e-5, atol=1e-5)      # f32 sums in another order
 WAYPOINT_TOL = dict(rtol=1e-4, atol=2e-3)   # kernels vs plain, same GPU
 CPU_TOL = dict(rtol=1e-3, atol=1e-2)        # GPU vs CPU convolution algorithms
 STAGE_SHAPES = ((192, 16), (192, 32), (192, 64), (256, 128))   # (T, D) by fusion stage
+# T = 128 is the TransFuser baseline's; 200 is ragged; 1 and 3072 are the ends
+EXTRA_ATTN_SHAPES = ((128, 64), (200, 32), (1, 16), (3072, 128))
+HOT_CELL = (1.0, 1.0, 1.0)   # -> ix 136, iy 200, channel 1
 
 
 def emit(phase: str, **fields) -> None:
@@ -96,9 +108,28 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+def bound(nbytes: float, ops: float, peak_flops: float = PEAK_F32_FLOPS) -> dict:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_flops * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def attention_bounds(q) -> dict:
+    """Both bounds of one attention call: at the CUDA cores' f32 rate (the
+    yardstick since the first kernel) and at the 3xTF32 tensor-core rate."""
+    b, h, t, d = q.shape
+    nbytes, ops = 4 * q.numel() * 4, 4 * b * h * t * t * d
+    tc = bound(nbytes, ops, PEAK_3XTF32_FLOPS)
+    return {**bound(nbytes, ops), "bound_3xtf32_ms": tc["bound_ms"],
+            "bound_3xtf32_by": tc["bound_by"]}
+
+
+def attention_inputs(b, t, d, layout, g, dev):
+    """q, k, v of shape (b, 4, t, d): contiguous, or in the projection layout,
+    the view(b, t, 4, d).transpose(1, 2) of a Linear's (b, t, 4*d) output."""
+    if layout == "projection":
+        return tuple(torch.randn(b, t, 4 * d, generator=g, device=dev).view(b, t, 4, d)
+                     .transpose(1, 2) for _ in range(3))
+    return tuple(torch.randn(b, 4, t, d, generator=g, device=dev) for _ in range(3))
 
 
 # --------------------------------------------------------------------------- #
@@ -157,6 +188,11 @@ def check_bev(lidar, rng, dev):
         "no_valid_rows_2x4096_f32": np.zeros((2, 4096, 4), np.float32),
         "ragged_3x65537_f16": np.stack([padded(lidar_sweep(rng, 50000), 65537)
                                         for _ in range(3)]).astype(np.float16),
+        "fleet_8x65536_f16": np.stack([padded(lidar_sweep(rng, 65536), 65536)
+                                       for _ in range(8)]).astype(np.float16),
+        "hot_cell_1x65536_f32": padded(np.tile(np.float32(HOT_CELL), (65536, 1)), 65536)[None],
+        "five_points_1x5_f32": padded(lidar_sweep(rng, 5) / 8, 5)[None],
+        "empty_2x0_f32": np.zeros((2, 0, 4), np.float32),
     }
     err = 0.0
     for name, pts in cases.items():
@@ -169,7 +205,11 @@ def check_bev(lidar, rng, dev):
         occupied = int((got > 0).sum())
         emit("bev_check", case=name, max_abs_err=diff, occupied_cells=occupied)
         require(diff == 0.0, f"BEV kernel == plain version on {name}")
-        require(name.startswith("no_valid") or occupied > 0, f"occupied cells on {name}")
+        require(name.startswith(("no_valid", "empty")) or occupied > 0, f"occupied cells on {name}")
+        if name.startswith("hot_cell"):
+            want_hot = torch.zeros_like(got)
+            want_hot[0, 136, 200, 1] = 1.0
+            require(bool(torch.equal(got, want_hot)), "hot cell: 1.0 there and 0 elsewhere")
         err = max(err, diff)
     return err
 
@@ -177,17 +217,22 @@ def check_bev(lidar, rng, dev):
 def check_attention(attention, dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     err = 0.0
+    main_path = [(t, d) for t in (192, 256) for d in (16, 32, 64, 128)]
     for b in (1, 8):
-        for t in (192, 256):
-            for d in (16, 32, 64, 128):
-                q, k, v = (torch.randn(b, 4, t, d, generator=g, device=dev) for _ in range(3))
+        for t, d in main_path + list(EXTRA_ATTN_SHAPES):
+            for layout in ("contiguous", "projection"):
+                q, k, v = attention_inputs(b, t, d, layout, g, dev)
                 got = attention.fused_attention(q, k, v)
                 want = attention.attention_plain(q, k, v)
                 torch.cuda.synchronize()
                 diff = float((got - want).abs().max())
-                emit("attention_check", shape=[b, 4, t, d], max_abs_err=diff)
+                emit("attention_check", shape=[b, 4, t, d], layout=layout, max_abs_err=diff)
                 torch.testing.assert_close(got, want, **ATTN_TOL)
-                err = max(err, diff)
+                require(got.shape == (b, 4, t, d) and got.transpose(1, 2).is_contiguous(),
+                        f"attention output is the transposed view of a (B, T, H, D) buffer: "
+                        f"shape {tuple(got.shape)}, strides {got.stride()}")
+                if (t, d) in STAGE_SHAPES:
+                    err = max(err, diff)
     return err
 
 
@@ -197,7 +242,7 @@ def serve(cfg, dev, ops, rng):
     from mmfn_tpu_torch.models.gpt import SelfAttention
 
     t0 = time.perf_counter()
-    model = build_model(cfg, "rad", torch.Generator().manual_seed(SEED))
+    model = build_model(cfg, "rad", torch.Generator().manual_seed(SEED), device=dev)
     pipe = TorchPipeline(model, cfg, device=dev)
     payloads = [payload(rng, cfg) for _ in range(8)]
     emit("serve_setup", seconds=time.perf_counter() - t0,
@@ -213,7 +258,7 @@ def serve(cfg, dev, ops, rng):
         require(w.shape == (4, 2) and bool(np.isfinite(w).all()), f"batch-1 waypoints {w}")
     require(fleet.shape == (8, 4, 2) and bool(np.isfinite(fleet).all()), "fleet waypoints")
     require(launches["fused_attention"] == 32 * forwards, f"32 attention launches a forward: {launches}")
-    require(launches["bev_hist"] >= forwards, f"a BEV launch a forward: {launches}")
+    require(launches["bev_hist"] == forwards, f"one BEV launch a forward: {launches}")
     for i, w in enumerate(singles):
         np.testing.assert_allclose(fleet[i], w, **WAYPOINT_TOL)
 
@@ -225,8 +270,8 @@ def serve(cfg, dev, ops, rng):
     for m in attn:
         m.attn_impl = "pallas"
     # and with the plain versions of everything on the CPU
-    cpu_pipe = TorchPipeline(build_model(cfg, "rad", torch.Generator().manual_seed(SEED)),
-                             cfg, device="cpu")
+    cpu_pipe = TorchPipeline(build_model(cfg, "rad", torch.Generator().manual_seed(SEED),
+                                         device="cpu"), cfg, device="cpu")
     plain_cpu = cpu_pipe(*call_args(payloads[0]))
     emit("serve_reference", max_abs_vs_plain_gpu=float(np.abs(singles[0] - plain_gpu).max()),
          max_abs_vs_cpu=float(np.abs(singles[0] - plain_cpu).max()),
@@ -278,14 +323,13 @@ def time_kernels(lidar, attention, dev, rng):
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     for b in (1, 8):
         for t, d in STAGE_SHAPES:
-            q, k, v = (torch.randn(b, 4, t, d, generator=g, device=dev) for _ in range(3))
-            nbytes, ops = 4 * q.numel() * 4, 4 * b * 4 * t * t * d
+            q, k, v = attention_inputs(b, t, d, "projection", g, dev)
             rows[f"attention_b{b}_t{t}_d{d}"] = {
-                "shape": [b, 4, t, d],
+                "shape": [b, 4, t, d], "layout": "projection",
                 "ms": cuda_ms(lambda: attention.fused_attention(q, k, v)),
                 "plain_ms": cuda_ms(lambda: attention.attention_plain(q, k, v)),
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-                **bound(nbytes, ops)}
+                **attention_bounds(q)}
     for key, row in rows.items():
         emit("kernel_time", name=key, **row)
     return rows
@@ -298,6 +342,7 @@ def profile_serving(pipe, payloads, reps: int = 10):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    out = {}
     for label, fn in (("batch1", lambda: pipe(*call_args(payloads[0]))),
                       ("batch8", lambda: pipe.dispatch_fleet(payloads).cpu())):
         fn()
@@ -310,11 +355,13 @@ def profile_serving(pipe, payloads, reps: int = 10):
         dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / reps
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
-        emit("profile", run=label, wall_ms_per_call=wall_ms, device_busy_ms_per_call=busy_ms,
-             device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-             device_ops_per_call=sum(e.count for e in dev) / reps,
+        out[label] = {"wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy_ms,
+                      "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+                      "device_ops_per_call": sum(e.count for e in dev) / reps}
+        emit("profile", run=label, **out[label],
              top=[{"name": e.key[:100], "calls_per_call": e.count / reps,
                    "ms_per_call": e.self_device_time_total / 1e3 / reps} for e in top])
+    return out
 
 
 def main() -> int:
@@ -348,13 +395,13 @@ def main() -> int:
     cfg = GlobalConfig(attn_impl="pallas")
     pipe, payloads, launches = serve(cfg, dev, ops, rng)
     serving = time_serving(pipe, payloads)
-    profile_serving(pipe, payloads)
+    prof = profile_serving(pipe, payloads)
     rows = time_kernels(lidar, attention, dev, rng)
 
     # one batch-1 forward: one BEV launch, 8 attention launches per stage shape
     per_forward = [rows[f"attention_b1_t{t}_d{d}"] for t, d in STAGE_SHAPES]
     attn_total = {key: cfg.n_layer * sum(r[key] for r in per_forward)
-                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_3xtf32_ms")}
     bev = rows["bev_serving"]
     kernels = [
         {"name": "bev_hist", "route": "cuda", "source": "mmfn_tpu_torch/csrc/bev_hist.cu",
@@ -366,9 +413,15 @@ def main() -> int:
          "max_abs_err": attn_err, "ms": attn_total["ms"], "plain_ms": attn_total["plain_ms"],
          "bound_ms": attn_total["bound_ms"],
          "bound_by": max(per_forward, key=lambda r: r["bound_ms"])["bound_by"],
-         "library_ms": attn_total["library_ms"]},
+         "library_ms": attn_total["library_ms"],
+         "bound_3xtf32_ms": attn_total["bound_3xtf32_ms"],
+         "bound_3xtf32_by": max(per_forward,
+                                key=lambda r: r["bound_3xtf32_ms"])["bound_3xtf32_by"]},
     ]
-    emit("summary", per_batch1_forward=True, **serving)
+    b8_forward = cfg.n_layer * sum(rows[f"attention_b8_t{t}_d{d}"]["ms"] for t, d in STAGE_SHAPES)
+    emit("summary", per_batch1_forward=True, **serving,
+         device_ops_per_forward=prof["batch1"]["device_ops_per_call"],
+         attention_ms_per_forward={"batch1": attn_total["ms"], "batch8": b8_forward})
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,34 +9,54 @@
 //
 // What bounds it on the H100: bytes. A tick reads 65,536 points (512 KiB in
 // f16) and writes a 512 KiB grid; at 3.35 TB/s that is about 0.3 us, far
-// above its few integer operations per point.
+// above its few integer operations per point. At batch 1 the cluster's 16
+// SMs, not the whole card, move those bytes.
 //
 // Design: the TPU kernel's int8 one-hot matmul is an MXU trick; on Hopper
-// this is a scatter. Pass 1 gives one thread per point: it reads the row in
-// its transport type (f16 or f32, a template parameter), does the bin math
-// in f32 with the same expressions as the JAX kernel's _bin_indices, and
-// atomically adds 1 to a zeroed int32 count grid in global memory laid out
-// like the output, [b][ix][iy][channel]. Integer atomics make the counts
-// exact and independent of order. Pass 2 clips and divides, one thread per
-// cell. One cloud's count grid is 512 KiB, more than the 227 KB of shared
-// memory a block may use, so a per-block shared-memory histogram is left for
-// later. A point whose f32 sum (x + 16) or (y + 24) rounds up to 32 (the
-// largest f32 below 16, the two below 8) lands in bin 256: this kernel drops
-// it, as the JAX package's XLA path does (its Pallas kernel sends a
-// below-split point with y-bin 256 to the above channel's y-bin 0).
-// The whole batch goes in one launch pair; any N is allowed and the ragged
-// tail of the last block is masked.
+// this is a scatter, and one cloud's int32 count grid (512 KiB) is more than
+// one block's shared memory. So each cloud gets a thread-block cluster of 16
+// blocks, and block r holds ix rows [16r, 16r + 16) of the cloud's count
+// grid in its shared memory (16 x 256 x 2 int32 = 32 KiB): the cluster's
+// distributed shared memory holds the whole grid, and no count ever goes to
+// device memory. One launch per call, in five steps:
+//   1. each block zeroes its band;
+//   2. cluster.sync();
+//   3. each block reads its sixteenth of the cloud (one vector load per
+//      point, f16 or f32 as a template parameter, four points in flight per
+//      thread), bins each point in f32 with the same expressions as the JAX
+//      kernel's _bin_indices, and atomically adds 1 to the owning block's
+//      band through distributed shared memory (cluster.map_shared_rank);
+//   4. cluster.sync();
+//   5. each block writes its band as min(count, 5) * 0.2f in f32, 16 bytes
+//      a store. For the six counts 0..5 that product is the same f32 as
+//      min(count, 5) / 5 (a test holds the two equal), without the cost of
+//      an IEEE division in every cell.
+// Integer atomics keep the counts exact and independent of order. Why 16:
+// the band each SM zeroes and writes halves against a cluster of 8, and at
+// batch 1 that write is most of the time; 16 is above the portable cluster
+// size, so the launch allows it explicitly. A point whose f32 sum (x + 16)
+// or (y + 24) rounds up to 32 (the largest f32 below 16, the two below 8)
+// lands in bin 256: this kernel drops it, as the JAX package's XLA path does
+// (its Pallas kernel sends a below-split point with y-bin 256 to the above
+// channel's y-bin 0). Any N is allowed, N = 0 and N below the cluster's
+// thread count included: the grid then comes out zero.
 
+#include <cooperative_groups.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kGrid = 256;
-constexpr int kCells = kGrid * kGrid * 2;  // per cloud, [ix][iy][channel]
-constexpr int kThreads = 256;
+constexpr int kCluster = 16;                        // blocks per cloud
+constexpr int kBandRows = kGrid / kCluster;         // ix rows per block
+constexpr int kBandCells = kBandRows * kGrid * 2;   // [ix][iy][channel] int32, 32 KiB
+constexpr int kThreads = 512;
+constexpr int kUnroll = 4;                          // points in flight per thread
 
 __device__ __forceinline__ float4 load_point(const float* pts, long long row) {
     return reinterpret_cast<const float4*>(pts)[row];
@@ -50,55 +70,93 @@ __device__ __forceinline__ float4 load_point(const __half* pts, long long row) {
     return make_float4(__low2float(xy), __high2float(xy), __low2float(zw), __high2float(zw));
 }
 
-template <typename T>
-__global__ void bev_count_kernel(const T* __restrict__ pts, int* __restrict__ counts, int n) {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    const int b = blockIdx.y;
-    if (i >= n) return;
-    const float4 p = load_point(pts, static_cast<long long>(b) * n + i);
-    const float x = p.x, y = p.y, z = p.z, valid = p.w;
-    // comparisons with NaN are false, so NaN coordinates are dropped here
-    const bool in_range = (x >= -16.0f) && (x <= 16.0f) && (y >= -24.0f) && (y <= 8.0f);
-    if (!in_range || !(valid > 0.0f)) return;
-    int ix = static_cast<int>(floorf((x + 16.0f) * 8.0f));
-    int iy = static_cast<int>(floorf((y + 24.0f) * 8.0f));
-    if (x == 16.0f) ix = kGrid - 1;
-    if (y == 8.0f) iy = kGrid - 1;
-    if (ix >= kGrid || iy >= kGrid) return;
-    const int ch = (z <= -2.0f) ? 0 : 1;
-    atomicAdd(counts + static_cast<long long>(b) * kCells + (ix * kGrid + iy) * 2 + ch, 1);
+// min(count, 5) / 5, exactly, for the counts 0..5 that can reach it
+__device__ __forceinline__ float normalize(int count) {
+    return fminf(static_cast<float>(count), 5.0f) * 0.2f;
 }
 
-__global__ void bev_normalize_kernel(const int* __restrict__ counts, float* __restrict__ out,
-                                     long long total) {
-    const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-    if (i >= total) return;
-    out[i] = fminf(static_cast<float>(counts[i]), 5.0f) / 5.0f;
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bev_hist_kernel(const T* __restrict__ pts, float* __restrict__ out, int n) {
+    __shared__ int4 band4[kBandCells / 4];
+    int* band = reinterpret_cast<int*>(band4);
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
+    const long long b = blockIdx.y;
+
+    // 1-2. zero this block's band; no block adds before all are zero
+    for (int i = threadIdx.x; i < kBandCells / 4; i += kThreads) band4[i] = make_int4(0, 0, 0, 0);
+    cluster.sync();
+
+    // 3. bin this block's points into the owning bands
+    const T* cloud = pts + b * n * 4;
+    constexpr long long kStep = static_cast<long long>(kCluster) * kThreads;
+    for (long long base = static_cast<long long>(rank) * kThreads + threadIdx.x; base < n;
+         base += kStep * kUnroll) {
+        float4 p[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            const long long i = base + u * kStep;
+            p[u] = i < n ? load_point(cloud, i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            const float x = p[u].x, y = p[u].y, z = p[u].z, valid = p[u].w;
+            // comparisons with NaN are false, so NaN coordinates are dropped here
+            const bool in_range = (x >= -16.0f) && (x <= 16.0f) && (y >= -24.0f) && (y <= 8.0f);
+            if (!in_range || !(valid > 0.0f)) continue;
+            int ix = static_cast<int>(floorf((x + 16.0f) * 8.0f));
+            int iy = static_cast<int>(floorf((y + 24.0f) * 8.0f));
+            if (x == 16.0f) ix = kGrid - 1;
+            if (y == 8.0f) iy = kGrid - 1;
+            if (ix >= kGrid || iy >= kGrid) continue;
+            const int ch = (z <= -2.0f) ? 0 : 1;
+            int* owner = cluster.map_shared_rank(band, ix / kBandRows);
+            atomicAdd(owner + ((ix % kBandRows) * kGrid + iy) * 2 + ch, 1);
+        }
+    }
+
+    // 4-5. once every add has landed, write this block's band
+    cluster.sync();
+    float4* dst = reinterpret_cast<float4*>(out + (b * kGrid + rank * kBandRows) * kGrid * 2);
+    for (int i = threadIdx.x; i < kBandCells / 4; i += kThreads) {
+        const int4 c = band4[i];
+        dst[i] = make_float4(normalize(c.x), normalize(c.y), normalize(c.z), normalize(c.w));
+    }
+}
+
+template <typename T>
+int launch(const T* pts, float* out, int batch, int n, cudaStream_t s) {
+    static KernelAttribute non_portable;
+    const cudaError_t err =
+        non_portable.ensure(reinterpret_cast<const void*>(bev_hist_kernel<T>),
+                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = kCluster;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster, batch);
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = s;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+    const cudaError_t launched = cudaLaunchKernelEx(&cfg, bev_hist_kernel<T>, pts, out, n);
+    const cudaError_t last = cudaGetLastError();   // also clears a refused launch
+    return static_cast<int>(launched != cudaSuccess ? launched : last);
 }
 
 }  // namespace
 
-// pts: (B, N, 4) contiguous, f16 if is_half else f32. counts: (B, 256, 256, 2)
-// int32, zeroed by the caller. out: (B, 256, 256, 2) f32. Returns the CUDA
-// error code of the launches (0 on success).
-extern "C" int mmfn_bev_hist(const void* pts, int is_half, void* counts, void* out,
-                             int batch, int n, void* stream) {
+// pts: (B, N, 4) contiguous, f16 if is_half else f32, 8- or 16-byte aligned.
+// out: (B, 256, 256, 2) f32, 16-byte aligned, written whole. Returns the
+// CUDA error code of the launch (0 on success).
+extern "C" int mmfn_bev_hist(const void* pts, int is_half, void* out, int batch, int n,
+                             void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (n > 0) {
-        const dim3 grid((n + kThreads - 1) / kThreads, batch);
-        if (is_half) {
-            bev_count_kernel<__half><<<grid, kThreads, 0, s>>>(
-                static_cast<const __half*>(pts), static_cast<int*>(counts), n);
-        } else {
-            bev_count_kernel<float><<<grid, kThreads, 0, s>>>(
-                static_cast<const float*>(pts), static_cast<int*>(counts), n);
-        }
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const long long total = static_cast<long long>(batch) * kCells;
-    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    bev_normalize_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const int*>(counts),
-                                                     static_cast<float*>(out), total);
-    return static_cast<int>(cudaGetLastError());
+    float* o = static_cast<float*>(out);
+    if (is_half) return launch(static_cast<const __half*>(pts), o, batch, n, s);
+    return launch(static_cast<const float*>(pts), o, batch, n, s);
 }

@@ -26,6 +26,7 @@ import torch
 
 from mmfn_tpu_torch.config import GlobalConfig
 from mmfn_tpu_torch.data.batch import Batch
+from mmfn_tpu_torch.device import resolve_device
 from mmfn_tpu_torch.ops.lidar import (HIST_MAX_PER_PIXEL, bev_counts_np,
                                       lidar_to_histogram_features, pad_points)
 from mmfn_tpu_torch.ops.radar import radar_adjacency
@@ -34,16 +35,6 @@ MAX_SWEEP_POINTS = 32768  # one 64-ch sweep at 600k pts/s / 20 Hz, padded
 _ALIGN = 16
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float16): torch.float16,
                  np.dtype(np.float32): torch.float32, np.dtype(np.int32): torch.int32}
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` or, when None, the CUDA device; raises when there is none
-    rather than carrying on quietly on the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
 
 
 class TorchPipeline:

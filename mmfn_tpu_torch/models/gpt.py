@@ -44,8 +44,10 @@ class SelfAttention(nn.Module):
 
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
         if self.attn_impl == "pallas" and not self.training:
-            # the fused kernel (inference only: it has no backward)
-            y = fused_attention(q.contiguous(), k.contiguous(), v.contiguous())
+            # the fused kernel (inference only: it has no backward) reads the
+            # heads in place and returns the transpose of a (b, t, h, hs)
+            # buffer, so neither side of it copies
+            y = fused_attention(q, k, v)
         else:
             att = torch.softmax(q @ k.transpose(-2, -1) / math.sqrt(hs), dim=-1)
             y = self.attn_drop(att) @ v

@@ -24,6 +24,7 @@ from torch import nn
 
 from mmfn_tpu_torch.config import GlobalConfig
 from mmfn_tpu_torch.data.batch import Batch
+from mmfn_tpu_torch.device import resolve_device
 from mmfn_tpu_torch.models.common import init_weights, join_mlp
 from mmfn_tpu_torch.models.decoder import decode_waypoints
 from mmfn_tpu_torch.models.gat import RadarGAT
@@ -141,9 +142,12 @@ class MMFN(nn.Module):
 
 
 def build_model(config: GlobalConfig, variant: str = "vec",
-                generator: Optional[torch.Generator] = None) -> MMFN:
-    """An MMFN in eval mode on the CPU, its weights drawn from ``generator``
-    (``torch.Generator().manual_seed(0)`` when None). Move it with ``.to``."""
+                generator: Optional[torch.Generator] = None, device=None) -> MMFN:
+    """An MMFN in eval mode on ``device``: the CUDA device when None (raises
+    when there is none), ``"cpu"`` on request. Its weights are drawn on the
+    CPU from ``generator`` (``torch.Generator().manual_seed(0)`` when None),
+    so they are the same on every device."""
+    device = resolve_device(device)
     model = MMFN(config, variant)
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
-    return model.eval()
+    return model.to(device).eval()

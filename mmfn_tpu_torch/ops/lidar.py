@@ -29,8 +29,8 @@ GRID = 256
 HEIGHT_SPLIT = -2.0  # z <= -2 -> "below" channel 0, else "above" channel 1
 
 BEV_HIST = CudaKernel("bev_hist.cu", "mmfn_bev_hist", [
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p])
 
 
 def transform_2d_points(xyz: torch.Tensor, r1, t1_x, t1_y, r2, t2_x, t2_y) -> torch.Tensor:
@@ -88,8 +88,9 @@ def bev_histogram_plain(points4: torch.Tensor) -> torch.Tensor:
 def bev_histogram(points4: torch.Tensor) -> torch.Tensor:
     """(B, N, 4) [x, y, z, valid] in f16 or f32 -> (B, 256, 256, 2) f32.
 
-    A CUDA tensor launches ``csrc/bev_hist.cu`` (one launch pair for the whole
-    batch, reading f16 directly); a CPU tensor takes
+    A CUDA tensor launches ``csrc/bev_hist.cu`` (one launch for the whole
+    batch, reading f16 directly, its counts in the shared memory of one
+    16-block cluster per cloud); a CPU tensor takes
     :func:`bev_histogram_plain`."""
     if points4.device.type == "cpu":
         return bev_histogram_plain(points4)
@@ -100,12 +101,10 @@ def bev_histogram(points4: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"points4: expected (B, N, 4), got {tuple(points4.shape)}")
     if n >= 2 ** 31 or b > 65535 or b * n >= 2 ** 31:
         raise ValueError(f"points4: shape {tuple(points4.shape)} too large")
-    counts = torch.zeros((b, GRID, GRID, 2), dtype=torch.int32, device=points4.device)
     out = torch.empty((b, GRID, GRID, 2), dtype=torch.float32, device=points4.device)
     if b:
         BEV_HIST.launch(points4.data_ptr(), int(points4.dtype == torch.float16),
-                        counts.data_ptr(), out.data_ptr(), b, n,
-                        stream_handle(points4.device))
+                        out.data_ptr(), b, n, stream_handle(points4.device))
     return out
 
 

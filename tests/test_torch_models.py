@@ -218,7 +218,7 @@ def _model_pair(variant, n_layer, res, max_lanes, attn_impl, seed=0):
     rng = np.random.default_rng(seed + 2)
     variables = {"params": _randomise(init["params"], rng),
                  "batch_stats": _randomise(init["batch_stats"], rng, stats=True)}
-    port = build_model(GlobalConfig(**kw), variant)
+    port = build_model(GlobalConfig(**kw), variant, device="cpu")
     port.load_state_dict(tw.from_flax_variables(variables, variant, n_layer), strict=True)
     return jmodel, variables, port, data
 
@@ -257,7 +257,7 @@ def test_from_flax_variables_round_trips_through_convert_mmfn(small_pair):
     variant, _, variables, port, _ = small_pair
     sd = {k: v.numpy() for k, v in port.state_dict().items()}
     if variant != "img":
-        full = build_model(GlobalConfig(n_layer=1, max_lanes=6), "img").state_dict()
+        full = build_model(GlobalConfig(n_layer=1, max_lanes=6), "img", device="cpu").state_dict()
         for k, v in full.items():
             if k.startswith(tw._MAP_STEM):
                 sd[k] = np.zeros(tuple(v.shape), v.numpy().dtype)
@@ -279,17 +279,32 @@ def test_from_flax_variables_round_trips_through_convert_mmfn(small_pair):
 def test_load_reference_state_dict_tolerates_the_unused_map_stem(small_pair):
     variant, _, _, port, _ = small_pair
     sd = {f"module.{k}": v.clone() for k, v in port.state_dict().items()}
-    full = build_model(GlobalConfig(n_layer=1, max_lanes=6), "img").state_dict()
+    full = build_model(GlobalConfig(n_layer=1, max_lanes=6), "img", device="cpu").state_dict()
     for k, v in full.items():
         if k.startswith(tw._MAP_STEM):
             sd.setdefault(f"module.{k}", v)
     fresh = build_model(GlobalConfig(n_layer=1, max_lanes=6), variant,
-                        torch.Generator().manual_seed(9))
+                        torch.Generator().manual_seed(9), device="cpu")
     tw.load_reference_state_dict(fresh, sd)
     for k, v in port.state_dict().items():
         torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
     with pytest.raises(RuntimeError):
         tw.load_reference_state_dict(fresh, {**sd, "encoder.bogus.weight": torch.zeros(1)})
+
+
+def test_build_model_runs_on_the_gpu_unless_asked_for_the_cpu(monkeypatch):
+    """build_model without a device raises where there is no CUDA device; on
+    request it builds on the CPU, with the same weights from one seed."""
+    cfg = GlobalConfig(n_layer=1, max_lanes=6)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg, "vec")
+    a = build_model(cfg, "vec", torch.Generator().manual_seed(3), device="cpu")
+    b = build_model(cfg, "vec", torch.Generator().manual_seed(3), device=torch.device("cpu"))
+    assert not a.training
+    assert all(p.device.type == "cpu" for p in a.state_dict().values())
+    for key, value in a.state_dict().items():
+        torch.testing.assert_close(b.state_dict()[key], value, rtol=0, atol=0)
 
 
 @pytest.mark.slow

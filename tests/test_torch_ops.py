@@ -112,6 +112,18 @@ def test_bev_f32_rounding_edge_is_dropped():
     assert oracle[255, 192, 1] == pytest.approx(0.2) and oracle[128, 255, 0] == pytest.approx(0.2)
 
 
+def test_bev_kernel_normalizes_by_multiplying_exactly():
+    """csrc/bev_hist.cu writes min(count, 5) * 0.2f, not min(count, 5) / 5:
+    for every count a cell can hold the two are the same f32, so the kernel
+    still equals bev_histogram_plain bit for bit."""
+    counts = np.arange(0, 70000, dtype=np.int64)
+    clipped = np.minimum(counts, int(tlidar.HIST_MAX_PER_PIXEL)).astype(np.float32)
+    kernel = clipped * np.float32(0.2)
+    plain = (torch.from_numpy(counts).clamp(max=int(tlidar.HIST_MAX_PER_PIXEL))
+             .to(torch.float32) / tlidar.HIST_MAX_PER_PIXEL).numpy()
+    np.testing.assert_array_equal(kernel, plain)
+
+
 def test_bev_host_helpers_match_jax():
     rng = np.random.default_rng(3)
     pts = np.concatenate([_cloud(rng, 3000), _edges()])
@@ -130,18 +142,69 @@ def test_transform_2d_points_matches_jax():
     np.testing.assert_array_equal(got[:, 2:], xyz[:, 2:])
 
 
-@pytest.mark.parametrize("t,d", [(192, 16), (192, 32), (192, 64), (256, 128)])
-def test_attention_plain_matches_pallas(t, d):
+def _torch_heads(a, layout):
+    """(B, H, T, D) numpy -> a torch tensor of the same values, contiguous, or
+    in the projection layout: the view(b, t, h, d).transpose(1, 2) of a
+    contiguous (B, T, H*D) Linear output, as models/gpt.py hands it over."""
+    if layout == "contiguous":
+        return torch.from_numpy(a)
+    b, h, t, d = a.shape
+    proj = torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3)).reshape(b, t, h * d))
+    return proj.view(b, t, h, d).transpose(1, 2)
+
+
+# every (T, D) of the fusion stages, T = 128 (three token groups of the
+# TransFuser baseline's two), and a ragged T
+ATTN_CASES = [(192, 16), (192, 32), (192, 64), (256, 128), (128, 32), (200, 64)]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "projection"])
+@pytest.mark.parametrize("t,d", ATTN_CASES)
+def test_attention_plain_matches_pallas(t, d, layout):
     rng = np.random.default_rng(t + d)
     q, k, v = (rng.normal(size=(2, 4, t, d)).astype(np.float32) for _ in range(3))
     with jax.default_matmul_precision("highest"):
         want = np.asarray(_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                            interpret=True))
-    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    tq, tk, tv = (_torch_heads(x, layout) for x in (q, k, v))
+    assert tq.is_contiguous() == (layout == "contiguous")
+    # the kernel would read this layout in place
+    strides = (t * 4 * d, d, 4 * d) if layout == "projection" else (4 * t * d, t * d, d)
+    assert tattn._kernel_strides(tq, tk, tv) == (strides,) * 3
     got = tattn.attention_plain(tq, tk, tv).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     # the wrapper takes the plain version for CPU tensors
     np.testing.assert_array_equal(tattn.fused_attention(tq, tk, tv).numpy(), got)
+
+
+def test_attention_kernel_strides_accept_the_projection_layout_and_reject_the_rest():
+    b, h, t, d = 2, 4, 200, 32
+    proj = torch.zeros(b, t, h * d).view(b, t, h, d).transpose(1, 2)
+    cont = torch.zeros(b, h, t, d)
+    assert tattn._kernel_strides(proj, proj, proj) == ((t * h * d, d, h * d),) * 3
+    assert tattn._kernel_strides(cont, cont, cont) == ((h * t * d, t * d, d),) * 3
+    assert tattn._kernel_strides(proj, cont, proj)[1] == (h * t * d, t * d, d)
+    with pytest.raises(ValueError, match="last dimension"):
+        tattn._kernel_strides(cont, torch.zeros(b, h, d, t).transpose(2, 3), cont)
+    shifted = torch.zeros(b, t, h * d + 1)[:, :, 1:].view(b, t, h, d).transpose(1, 2)
+    assert shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte"):
+        tattn._kernel_strides(cont, cont, shifted)
+    odd_rows = torch.zeros(b, t, h * d + 2)[:, :, :h * d].view(b, t, h, d).transpose(1, 2)
+    assert odd_rows.data_ptr() % 16 == 0 and odd_rows.stride(2) % 4 == 2
+    with pytest.raises(ValueError, match="16-byte"):
+        tattn._kernel_strides(odd_rows, cont, cont)
+    bad_d = torch.zeros(b, h, t, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        tattn._kernel_strides(bad_d, bad_d, bad_d)
+    for bad_t in (0, tattn.MAX_TOKENS + 1):
+        x = torch.zeros(1, 1, 1, d).expand(1, 1, bad_t, d)
+        with pytest.raises(ValueError, match="range"):
+            tattn._kernel_strides(x, x, x)
+    with pytest.raises(ValueError, match="shape"):
+        tattn._kernel_strides(cont, cont[:, :, :128], cont)
+    with pytest.raises(ValueError, match="expected"):
+        tattn._kernel_strides(cont[0], cont[0], cont[0])
 
 
 def test_image_and_radar_ops_match_jax():

@@ -43,7 +43,7 @@ def models():
         synthetic_batch(batch_size=1, max_lanes=MAX_LANES, resolution=64), False)
     variables = jax.tree.map(np.asarray, dict(variables))
     cfg = GlobalConfig(**kw)
-    port = build_model(cfg, "rad")
+    port = build_model(cfg, "rad", device="cpu")
     port.load_state_dict(from_flax_variables(variables, "rad", n_layer=1))
     return jmodel, variables, port, cfg
 
