@@ -8,11 +8,12 @@ Run from the root of the repository, on a machine with one NVIDIA Hopper GPU
 
 Phases, in order; any failure exits non-zero before the last line:
   1. build both CUDA kernels from mmfn_tpu_torch/csrc (nvcc, in parallel);
-  2. BEV histogram kernel == its plain PyTorch version, exactly, at
-     1 x 65,536 f16 (serving), 8 x 65,536 f32 (bench) and 8 x 65,536 f16
-     points, on bin edges, on clouds with no valid rows, at N not a multiple
-     of 256, at N = 5 and N = 0, and on a cloud with all 65,536 points in
-     one cell (1.0 there, 0 elsewhere);
+  2. BEV histogram kernel == its plain PyTorch version, exactly, with
+     clusters of 8 and of 16 blocks per cloud, at 1 x 65,536 f16 (serving),
+     8 x 65,536 f32 (bench) and 8 x 65,536 f16 points, on bin edges, on
+     clouds with no valid rows, at N not a multiple of 256, at N = 5 and
+     N = 0, and on a cloud with all 65,536 points in one cell (1.0 there, 0
+     elsewhere);
   3. fused attention kernel vs its plain PyTorch version at every main-path
      shape (T in {192, 256}, D in {16, 32, 64, 128}, B in {1, 8}, H = 4),
      at T = 128, a ragged T, T = 1 and T = 3072, each with q, k, v
@@ -30,8 +31,9 @@ Phases, in order; any failure exits non-zero before the last line:
   5. time batch-1 request latency and batch-8 frames/s, profile both
      (torch.profiler: device busy time, idle share, top kernels), and time
      each kernel at its main-path shapes (CUDA events, after warm-up; the
-     attention in the projection layout) beside its plain version, SDPA for
-     attention, and its bounds on the H100.
+     attention in the projection layout; the BEV histogram with clusters of
+     8 and 16, interleaved, and as the wrapper picks it) beside its plain version, SDPA for attention,
+     and its bounds on the H100.
 
 Output: JSON lines per phase (the summary has the device ops per batch-1
 forward), then a ``kernels`` line, the GPU's name and
@@ -114,13 +116,14 @@ def bound(nbytes: float, ops: float, peak_flops: float = PEAK_F32_FLOPS) -> dict
 
 
 def attention_bounds(q) -> dict:
-    """Both bounds of one attention call: at the CUDA cores' f32 rate (the
-    yardstick since the first kernel) and at the 3xTF32 tensor-core rate."""
+    """Both bounds of one attention call: at the 3xTF32 tensor-core rate the
+    kernel computes at, and (``bound_f32_*``) at the CUDA cores' f32 rate,
+    the yardstick of the first kernel."""
     b, h, t, d = q.shape
     nbytes, ops = 4 * q.numel() * 4, 4 * b * h * t * t * d
-    tc = bound(nbytes, ops, PEAK_3XTF32_FLOPS)
-    return {**bound(nbytes, ops), "bound_3xtf32_ms": tc["bound_ms"],
-            "bound_3xtf32_by": tc["bound_by"]}
+    f32 = bound(nbytes, ops)
+    return {**bound(nbytes, ops, PEAK_3XTF32_FLOPS), "bound_f32_ms": f32["bound_ms"],
+            "bound_f32_by": f32["bound_by"]}
 
 
 def attention_inputs(b, t, d, layout, g, dev):
@@ -197,20 +200,24 @@ def check_bev(lidar, rng, dev):
     err = 0.0
     for name, pts in cases.items():
         x = torch.from_numpy(pts).to(dev)
-        got = lidar.bev_histogram(x)
         want = lidar.bev_histogram_plain(x)
-        torch.cuda.synchronize()
-        require(got.shape == want.shape == (pts.shape[0], 256, 256, 2), f"BEV shape on {name}")
-        diff = float((got - want).abs().max())
-        occupied = int((got > 0).sum())
-        emit("bev_check", case=name, max_abs_err=diff, occupied_cells=occupied)
-        require(diff == 0.0, f"BEV kernel == plain version on {name}")
-        require(name.startswith(("no_valid", "empty")) or occupied > 0, f"occupied cells on {name}")
-        if name.startswith("hot_cell"):
-            want_hot = torch.zeros_like(got)
-            want_hot[0, 136, 200, 1] = 1.0
-            require(bool(torch.equal(got, want_hot)), "hot cell: 1.0 there and 0 elsewhere")
-        err = max(err, diff)
+        for cluster in lidar.CLUSTERS:
+            got = lidar._bev_histogram_cuda(x, cluster)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape == (pts.shape[0], 256, 256, 2),
+                    f"BEV shape on {name}")
+            diff = float((got - want).abs().max())
+            occupied = int((got > 0).sum())
+            emit("bev_check", case=name, cluster=cluster, max_abs_err=diff,
+                 occupied_cells=occupied)
+            require(diff == 0.0, f"BEV kernel == plain version on {name}, cluster {cluster}")
+            require(name.startswith(("no_valid", "empty")) or occupied > 0,
+                    f"occupied cells on {name}")
+            if name.startswith("hot_cell"):
+                want_hot = torch.zeros_like(got)
+                want_hot[0, 136, 200, 1] = 1.0
+                require(bool(torch.equal(got, want_hot)), "hot cell: 1.0 there and 0 elsewhere")
+            err = max(err, diff)
     return err
 
 
@@ -311,13 +318,21 @@ def time_kernels(lidar, attention, dev, rng):
     import torch.nn.functional as F
 
     rows = {}
-    for name, b, dtype in (("serving", 1, torch.float16), ("bench", 8, torch.float32)):
+    for name, b, dtype in (("serving", 1, torch.float16), ("bench", 8, torch.float32),
+                           ("fleet", 8, torch.float16)):
         pts = torch.from_numpy(np.stack([padded(lidar_sweep(rng, 60000), 65536)
                                          for _ in range(b)])).to(dev, dtype)
         nbytes = pts.numel() * pts.element_size() + b * 256 * 256 * 2 * 4
         ops = 12 * b * 65536 + 2 * b * 256 * 256 * 2
+        # each cluster size twice, interleaved 8, 16, 16, 8, so drift falls on both
+        by_cluster = {c: [] for c in lidar.CLUSTERS}
+        for c in lidar.CLUSTERS + lidar.CLUSTERS[::-1]:
+            by_cluster[c].append(cuda_ms(lambda: lidar._bev_histogram_cuda(pts, c)))
         rows[f"bev_{name}"] = {"shape": list(pts.shape), "dtype": str(dtype),
+                               "cluster": lidar.cluster_size(b),
                                "ms": cuda_ms(lambda: lidar.bev_histogram(pts)),
+                               "ms_by_cluster": {str(c): statistics.fmean(t)
+                                                 for c, t in by_cluster.items()},
                                "plain_ms": cuda_ms(lambda: lidar.bev_histogram_plain(pts)),
                                "library_ms": None, **bound(nbytes, ops)}
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -401,7 +416,7 @@ def main() -> int:
     # one batch-1 forward: one BEV launch, 8 attention launches per stage shape
     per_forward = [rows[f"attention_b1_t{t}_d{d}"] for t, d in STAGE_SHAPES]
     attn_total = {key: cfg.n_layer * sum(r[key] for r in per_forward)
-                  for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_3xtf32_ms")}
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_ms")}
     bev = rows["bev_serving"]
     kernels = [
         {"name": "bev_hist", "route": "cuda", "source": "mmfn_tpu_torch/csrc/bev_hist.cu",
@@ -413,15 +428,13 @@ def main() -> int:
          "max_abs_err": attn_err, "ms": attn_total["ms"], "plain_ms": attn_total["plain_ms"],
          "bound_ms": attn_total["bound_ms"],
          "bound_by": max(per_forward, key=lambda r: r["bound_ms"])["bound_by"],
-         "library_ms": attn_total["library_ms"],
-         "bound_3xtf32_ms": attn_total["bound_3xtf32_ms"],
-         "bound_3xtf32_by": max(per_forward,
-                                key=lambda r: r["bound_3xtf32_ms"])["bound_3xtf32_by"]},
+         "library_ms": attn_total["library_ms"]},
     ]
     b8_forward = cfg.n_layer * sum(rows[f"attention_b8_t{t}_d{d}"]["ms"] for t, d in STAGE_SHAPES)
     emit("summary", per_batch1_forward=True, **serving,
          device_ops_per_forward=prof["batch1"]["device_ops_per_call"],
-         attention_ms_per_forward={"batch1": attn_total["ms"], "batch8": b8_forward})
+         attention_ms_per_forward={"batch1": attn_total["ms"], "batch8": b8_forward},
+         attention_bound_f32_ms_per_forward=attn_total["bound_f32_ms"])
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,16 +18,16 @@
 // - Operands in place. q, k, v are read where the projections leave them:
 //   (b, h, t) element strides are arguments and only the last dimension must
 //   be contiguous, so the view(b, t, h, d).transpose(1, 2) heads of a Linear's
-//   output need no copy. o has its own strides; the wrapper passes those of
-//   a contiguous (B, T, H, D) buffer, so the caller's reshape back to
-//   (B, T, H*D) is free.
+//   output need no copy. o is a contiguous (B, T, H, D) buffer, so the
+//   caller's reshape back to (B, T, H*D) is free.
 // - Grid (ceil(T / 16), H, B): one block per 16 query rows of one (b, h),
 //   4 warps. The warps split the keys: warp w takes the 8-key tiles
 //   w, w + 4, w + 8, ... and keeps its own running row max and sum (online
 //   softmax) and its own 16 x D partial O in registers. At the end the
 //   warps combine max, sum and O through shared memory. The (T, T) matrix
-//   never leaves registers, and T is bounded only by the grid. At batch 1,
-//   T = 256 the grid is 64 blocks.
+//   never leaves registers, and no buffer grows with T (the wrapper takes
+//   T up to 3072, the largest checked on the card). At batch 1, T = 256 the
+//   grid is 64 blocks.
 // - Tensor cores at f32 accuracy ("3xTF32", as CUTLASS's
 //   OpMultiplyAddFastF32): both products use mma.sync m16n8k8 TF32 with f32
 //   accumulators. Every f32 operand x splits into big = cvt.rna.tf32(x) and
@@ -81,7 +81,6 @@ struct Params {
     long long q_sb, q_sh, q_st;   // element strides of b, h, t
     long long k_sb, k_sh, k_st;
     long long v_sb, v_sh, v_st;
-    long long o_sb, o_sh, o_st;
     int t;
     float scale;
 };
@@ -157,11 +156,11 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
     const int g = lane / 4, c = lane % 4;
     const int t = p.t;
     const int row0 = blockIdx.x * kRows;
-    const long long h = blockIdx.y, b = blockIdx.z;
+    const long long h = blockIdx.y, b = blockIdx.z, o_st = gridDim.y * D;   // o: (B, T, H, D)
     const float* qb = p.q + b * p.q_sb + h * p.q_sh;
     const float* kb = p.k + b * p.k_sb + h * p.k_sh;
     const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-    float* ob = p.o + b * p.o_sb + h * p.o_sh;
+    float* ob = p.o + b * t * o_st + h * D;
 
     float* ring = rings + warp * L::kRing;
     const int n_tiles = (t + kKeys - 1) / kKeys;
@@ -339,7 +338,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
             acc.w = fmaf(sc, x.w, acc.w);
         }
         const float l = row_sum[r];
-        *reinterpret_cast<float4*>(ob + (row0 + r) * p.o_st + col) =
+        *reinterpret_cast<float4*>(ob + (row0 + r) * o_st + col) =
             make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
     }
 }
@@ -360,17 +359,17 @@ int launch(const Params& p, int b, int h, cudaStream_t s) {
 
 // q, k, v: (b, h, t, d) f32 views whose last dimension is contiguous, with
 // element strides q_s = {b, h, t} (likewise k_s, v_s), every base and
-// stride 16-byte aligned; o: (b, h, t, d) with strides o_s, the same
-// alignment. d in {16, 32, 64, 128}, 1 <= t, b and h <= 65535. Returns the
+// stride 16-byte aligned; o: a contiguous (b, t, h, d) buffer, 16-byte
+// aligned. d in {16, 32, 64, 128}, 1 <= t, b and h <= 65535. Returns the
 // CUDA error code of the launch (0 on success).
 extern "C" int mmfn_attention_f32(const void* q, const void* k, const void* v, void* o,
                                   const long long* q_s, const long long* k_s,
-                                  const long long* v_s, const long long* o_s, int b, int h,
-                                  int t, int d, float scale, void* stream) {
+                                  const long long* v_s, int b, int h, int t, int d,
+                                  float scale, void* stream) {
     const Params p{static_cast<const float*>(q), static_cast<const float*>(k),
                    static_cast<const float*>(v), static_cast<float*>(o),
                    q_s[0], q_s[1], q_s[2], k_s[0], k_s[1], k_s[2],
-                   v_s[0], v_s[1], v_s[2], o_s[0], o_s[1], o_s[2], t, scale};
+                   v_s[0], v_s[1], v_s[2], t, scale};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (d) {
         case 16: return launch<16>(p, b, h, s);

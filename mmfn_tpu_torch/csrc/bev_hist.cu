@@ -9,37 +9,39 @@
 //
 // What bounds it on the H100: bytes. A tick reads 65,536 points (512 KiB in
 // f16) and writes a 512 KiB grid; at 3.35 TB/s that is about 0.3 us, far
-// above its few integer operations per point. At batch 1 the cluster's 16
-// SMs, not the whole card, move those bytes.
+// above its few integer operations per point. At batch 1 only the cloud's
+// cluster of SMs, not the whole card, moves those bytes.
 //
 // Design: the TPU kernel's int8 one-hot matmul is an MXU trick; on Hopper
 // this is a scatter, and one cloud's int32 count grid (512 KiB) is more than
-// one block's shared memory. So each cloud gets a thread-block cluster of 16
-// blocks, and block r holds ix rows [16r, 16r + 16) of the cloud's count
-// grid in its shared memory (16 x 256 x 2 int32 = 32 KiB): the cluster's
+// one block's shared memory. So each cloud gets a thread-block cluster of C
+// blocks (C = 8 or 16, a template parameter chosen per call), and block r
+// holds ix rows [r 256/C, (r + 1) 256/C) of the cloud's count grid in its
+// dynamic shared memory (64 KiB at C = 8, 32 KiB at C = 16): the cluster's
 // distributed shared memory holds the whole grid, and no count ever goes to
 // device memory. One launch per call, in five steps:
 //   1. each block zeroes its band;
 //   2. cluster.sync();
-//   3. each block reads its sixteenth of the cloud (one vector load per
-//      point, f16 or f32 as a template parameter, four points in flight per
-//      thread), bins each point in f32 with the same expressions as the JAX
-//      kernel's _bin_indices, and atomically adds 1 to the owning block's
-//      band through distributed shared memory (cluster.map_shared_rank);
+//   3. each block reads its 1/C of the cloud (one vector load per point, f16
+//      or f32 as a template parameter, four points in flight per thread),
+//      bins each point in f32 with the same expressions as the JAX kernel's
+//      _bin_indices, and atomically adds 1 to the owning block's band
+//      through distributed shared memory (cluster.map_shared_rank);
 //   4. cluster.sync();
 //   5. each block writes its band as min(count, 5) * 0.2f in f32, 16 bytes
 //      a store. For the six counts 0..5 that product is the same f32 as
 //      min(count, 5) / 5 (a test holds the two equal), without the cost of
 //      an IEEE division in every cell.
-// Integer atomics keep the counts exact and independent of order. Why 16:
-// the band each SM zeroes and writes halves against a cluster of 8, and at
-// batch 1 that write is most of the time; 16 is above the portable cluster
-// size, so the launch allows it explicitly. A point whose f32 sum (x + 16)
-// or (y + 24) rounds up to 32 (the largest f32 below 16, the two below 8)
-// lands in bin 256: this kernel drops it, as the JAX package's XLA path does
-// (its Pallas kernel sends a below-split point with y-bin 256 to the above
-// channel's y-bin 0). Any N is allowed, N = 0 and N below the cluster's
-// thread count included: the grid then comes out zero.
+// Integer atomics keep the counts exact and independent of order. C = 16
+// halves the band each SM zeroes and writes, but is above the portable
+// cluster size, so its launch allows it explicitly. The wrapper takes 16
+// for one cloud and 8 for more, the faster size at batch 1 and at batch 8
+// as chip_smoke.py times them. A point whose f32 sum (x + 16) or (y + 24)
+// rounds up to 32 (the largest f32 below 16, the two below 8) lands in bin
+// 256: this kernel drops it, as the JAX package's XLA path does (its Pallas
+// kernel sends a below-split point with y-bin 256 to the above channel's
+// y-bin 0). Any N is allowed, N = 0 and N below the cluster's thread count
+// included: the grid then comes out zero.
 
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
@@ -52,11 +54,16 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kGrid = 256;
-constexpr int kCluster = 16;                        // blocks per cloud
-constexpr int kBandRows = kGrid / kCluster;         // ix rows per block
-constexpr int kBandCells = kBandRows * kGrid * 2;   // [ix][iy][channel] int32, 32 KiB
 constexpr int kThreads = 512;
-constexpr int kUnroll = 4;                          // points in flight per thread
+constexpr int kUnroll = 4;   // points in flight per thread
+
+// the band of one block in a cluster of C blocks per cloud
+template <int C>
+struct Band {
+    static constexpr int kRows = kGrid / C;              // ix rows
+    static constexpr int kCells = kRows * kGrid * 2;     // [ix][iy][channel] int32
+    static constexpr int kBytes = kCells * static_cast<int>(sizeof(int));
+};
 
 __device__ __forceinline__ float4 load_point(const float* pts, long long row) {
     return reinterpret_cast<const float4*>(pts)[row];
@@ -75,10 +82,11 @@ __device__ __forceinline__ float normalize(int count) {
     return fminf(static_cast<float>(count), 5.0f) * 0.2f;
 }
 
-template <typename T>
+template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
 bev_hist_kernel(const T* __restrict__ pts, float* __restrict__ out, int n) {
-    __shared__ int4 band4[kBandCells / 4];
+    constexpr int kBandRows = Band<C>::kRows, kBandCells = Band<C>::kCells;
+    extern __shared__ int4 band4[];
     int* band = reinterpret_cast<int*>(band4);
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = static_cast<int>(cluster.block_rank());
@@ -90,7 +98,7 @@ bev_hist_kernel(const T* __restrict__ pts, float* __restrict__ out, int n) {
 
     // 3. bin this block's points into the owning bands
     const T* cloud = pts + b * n * 4;
-    constexpr long long kStep = static_cast<long long>(kCluster) * kThreads;
+    constexpr long long kStep = static_cast<long long>(C) * kThreads;
     for (long long base = static_cast<long long>(rank) * kThreads + threadIdx.x; base < n;
          base += kStep * kUnroll) {
         float4 p[kUnroll];
@@ -125,38 +133,51 @@ bev_hist_kernel(const T* __restrict__ pts, float* __restrict__ out, int n) {
     }
 }
 
-template <typename T>
+template <typename T, int C>
 int launch(const T* pts, float* out, int batch, int n, cudaStream_t s) {
-    static KernelAttribute non_portable;
-    const cudaError_t err =
-        non_portable.ensure(reinterpret_cast<const void*>(bev_hist_kernel<T>),
-                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const void* kernel = reinterpret_cast<const void*>(bev_hist_kernel<T, C>);
+    static KernelAttribute smem_limit, non_portable;
+    cudaError_t err = smem_limit.ensure(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        Band<C>::kBytes);
+    if (err == cudaSuccess && C > 8)
+        err = non_portable.ensure(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchAttribute cluster;
     cluster.id = cudaLaunchAttributeClusterDimension;
-    cluster.val.clusterDim.x = kCluster;
+    cluster.val.clusterDim.x = C;
     cluster.val.clusterDim.y = 1;
     cluster.val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(kCluster, batch);
+    cfg.gridDim = dim3(C, batch);
     cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = Band<C>::kBytes;
     cfg.stream = s;
     cfg.attrs = &cluster;
     cfg.numAttrs = 1;
-    const cudaError_t launched = cudaLaunchKernelEx(&cfg, bev_hist_kernel<T>, pts, out, n);
+    const cudaError_t launched = cudaLaunchKernelEx(&cfg, bev_hist_kernel<T, C>, pts, out, n);
     const cudaError_t last = cudaGetLastError();   // also clears a refused launch
     return static_cast<int>(launched != cudaSuccess ? launched : last);
+}
+
+template <int C>
+int launch_typed(const void* pts, int is_half, float* out, int batch, int n, cudaStream_t s) {
+    if (is_half) return launch<__half, C>(static_cast<const __half*>(pts), out, batch, n, s);
+    return launch<float, C>(static_cast<const float*>(pts), out, batch, n, s);
 }
 
 }  // namespace
 
 // pts: (B, N, 4) contiguous, f16 if is_half else f32, 8- or 16-byte aligned.
-// out: (B, 256, 256, 2) f32, 16-byte aligned, written whole. Returns the
-// CUDA error code of the launch (0 on success).
+// out: (B, 256, 256, 2) f32, 16-byte aligned, written whole. cluster: blocks
+// per cloud, 8 or 16. Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int mmfn_bev_hist(const void* pts, int is_half, void* out, int batch, int n,
-                             void* stream) {
+                             int cluster, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* o = static_cast<float*>(out);
-    if (is_half) return launch(static_cast<const __half*>(pts), o, batch, n, s);
-    return launch(static_cast<const float*>(pts), o, batch, n, s);
+    switch (cluster) {
+        case 8: return launch_typed<8>(pts, is_half, o, batch, n, s);
+        case 16: return launch_typed<16>(pts, is_half, o, batch, n, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }

@@ -126,17 +126,17 @@ def stream_handle(device: torch.device) -> int:
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int,
-                      align: int = 16, contiguous: bool = True) -> None:
+                      align: int = 16) -> None:
     """Reject what a kernel cannot take: wrong device, type, rank, a
-    non-contiguous layout (when ``contiguous``), or a base address the
-    kernel's vector loads cannot read."""
+    non-contiguous layout, or a base address the kernel's vector loads
+    cannot read."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
-    if contiguous and not t.is_contiguous():
+    if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: data pointer not {align}-byte aligned")

@@ -27,10 +27,11 @@ X_RANGE = (-16.0, 16.0)
 Y_RANGE = (-24.0, 8.0)
 GRID = 256
 HEIGHT_SPLIT = -2.0  # z <= -2 -> "below" channel 0, else "above" channel 1
+CLUSTERS = (8, 16)   # thread blocks per cloud the kernel can take
 
 BEV_HIST = CudaKernel("bev_hist.cu", "mmfn_bev_hist", [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p])
+    ctypes.c_int, ctypes.c_void_p])
 
 
 def transform_2d_points(xyz: torch.Tensor, r1, t1_x, t1_y, r2, t2_x, t2_y) -> torch.Tensor:
@@ -85,15 +86,28 @@ def bev_histogram_plain(points4: torch.Tensor) -> torch.Tensor:
     return hist.view(b, GRID, GRID, 2)
 
 
+def cluster_size(batch: int) -> int:
+    """Thread blocks per cloud. One cloud cannot fill the card, and 16
+    blocks halve the band each SM zeroes and writes; with more clouds a
+    cluster of 8 is the faster (PERF.md, kernel 1's cluster sizes)."""
+    return 16 if batch == 1 else 8
+
+
 def bev_histogram(points4: torch.Tensor) -> torch.Tensor:
     """(B, N, 4) [x, y, z, valid] in f16 or f32 -> (B, 256, 256, 2) f32.
 
     A CUDA tensor launches ``csrc/bev_hist.cu`` (one launch for the whole
     batch, reading f16 directly, its counts in the shared memory of one
-    16-block cluster per cloud); a CPU tensor takes
-    :func:`bev_histogram_plain`."""
+    thread-block cluster per cloud, of :func:`cluster_size` blocks); a CPU
+    tensor takes :func:`bev_histogram_plain`."""
     if points4.device.type == "cpu":
         return bev_histogram_plain(points4)
+    return _bev_histogram_cuda(points4, cluster_size(points4.shape[0]))
+
+
+def _bev_histogram_cuda(points4: torch.Tensor, cluster: int) -> torch.Tensor:
+    """Launch the kernel with ``cluster`` (one of :data:`CLUSTERS`) blocks per
+    cloud."""
     align = 8 if points4.dtype == torch.float16 else 16
     check_cuda_tensor("points4", points4, (torch.float16, torch.float32), 3, align)
     b, n, cols = points4.shape
@@ -104,7 +118,7 @@ def bev_histogram(points4: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, GRID, GRID, 2), dtype=torch.float32, device=points4.device)
     if b:
         BEV_HIST.launch(points4.data_ptr(), int(points4.dtype == torch.float16),
-                        out.data_ptr(), b, n, stream_handle(points4.device))
+                        out.data_ptr(), b, n, cluster, stream_handle(points4.device))
     return out
 
 

@@ -124,6 +124,14 @@ def test_bev_kernel_normalizes_by_multiplying_exactly():
     np.testing.assert_array_equal(kernel, plain)
 
 
+def test_bev_cluster_size_follows_the_batch():
+    """One cloud gets a cluster of 16 blocks, more clouds 8 each: the faster
+    size at batch 1 and at batch 8 on the GPU."""
+    assert tlidar.cluster_size(1) == 16
+    assert [tlidar.cluster_size(b) for b in (2, 8, 64)] == [8, 8, 8]
+    assert {tlidar.cluster_size(b) for b in range(1, 9)} == set(tlidar.CLUSTERS)
+
+
 def test_bev_host_helpers_match_jax():
     rng = np.random.default_rng(3)
     pts = np.concatenate([_cloud(rng, 3000), _edges()])
@@ -201,6 +209,8 @@ def test_attention_kernel_strides_accept_the_projection_layout_and_reject_the_re
         x = torch.zeros(1, 1, 1, d).expand(1, 1, bad_t, d)
         with pytest.raises(ValueError, match="range"):
             tattn._kernel_strides(x, x, x)
+    with pytest.raises(ValueError, match="float32"):
+        tattn._kernel_strides(cont, cont.double(), cont)
     with pytest.raises(ValueError, match="shape"):
         tattn._kernel_strides(cont, cont[:, :, :128], cont)
     with pytest.raises(ValueError, match="expected"):
