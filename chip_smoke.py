@@ -33,10 +33,24 @@ Phases, in order; any failure exits non-zero before the last line:
      each kernel at its main-path shapes (CUDA events, after warm-up; the
      attention in the projection layout; the BEV histogram with clusters of
      8 and 16, interleaved, and as the wrapper picks it) beside its plain version, SDPA for attention,
-     and its bounds on the H100.
+     and its bounds on the H100;
+  6. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
+     24 from 96 synthetic samples in the GPU data cache (``DeviceDataset``,
+     no map column): f32 (3 warm-up steps, then 5 epochs of 4 steps, one host
+     fetch each; finite losses; parameters and BN buffers f32 and moved; no
+     kernel launched by the train step), validation of 2 batches of 48
+     samples through the fused attention (32 launches a forward, the loss
+     within rtol 1e-4 of the plain attention's), a torch.profiler breakdown
+     of 5 steps, 10 bf16 steps (finite, f32 state), one remat step against a
+     plain one (loss and BN statistics within rtol 1e-4, both peak
+     memories), one step at n_layer 1 / 64 px / batch 4 on the card against
+     the CPU (loss rtol 1e-4, parameters within 2.5 lr), and 2 steps + save +
+     resume + 1 step against 3 uninterrupted steps (loss rtol 1e-4, the same
+     iteration count and recent.log).
 
 Output: JSON lines per phase (the summary has the device ops per batch-1
-forward), then a ``kernels`` line, the GPU's name and
+forward; ``train_summary`` the training rates, peak memory, idle share and
+device ops per step), then a ``kernels`` line, the GPU's name and
 power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 TF32 is off for matmuls and cuDNN convolutions throughout.
@@ -45,9 +59,11 @@ TF32 is off for matmuls and cuDNN convolutions throughout.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -350,33 +366,378 @@ def time_kernels(lidar, attention, dev, rng):
     return rows
 
 
-def profile_serving(pipe, payloads, reps: int = 10):
-    """Where a request's time goes: torch.profiler over ``reps`` batch-1
-    requests and ``reps`` fleets of 8. Device busy time is the sum of the
-    kernels' and copies' device time (one stream, so they do not overlap)."""
+def profile_calls(fn, reps: int):
+    """torch.profiler over ``reps`` calls of ``fn`` (which must end in a host
+    fetch or synchronize): per call, wall time, device busy time (the sum of
+    the kernels' and copies' device time; one stream, so they do not
+    overlap; user annotations such as ``Optimizer.step``, which span other
+    kernels, are left out), idle share and device ops, and the top 12 device
+    ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / reps
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
+    summary = {"wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy_ms,
+               "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+               "device_ops_per_call": sum(e.count for e in dev) / reps}
+    return summary, [{"name": e.key[:100], "calls_per_call": e.count / reps,
+                      "ms_per_call": e.self_device_time_total / 1e3 / reps} for e in top]
+
+
+def profile_serving(pipe, payloads, reps: int = 10):
+    """Where a request's time goes: torch.profiler over ``reps`` batch-1
+    requests and ``reps`` fleets of 8."""
     out = {}
     for label, fn in (("batch1", lambda: pipe(*call_args(payloads[0]))),
                       ("batch8", lambda: pipe.dispatch_fleet(payloads).cpu())):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / reps
-        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
-        out[label] = {"wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy_ms,
-                      "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-                      "device_ops_per_call": sum(e.count for e in dev) / reps}
-        emit("profile", run=label, **out[label],
-             top=[{"name": e.key[:100], "calls_per_call": e.count / reps,
-                   "ms_per_call": e.self_device_time_total / 1e3 / reps} for e in top])
+        out[label], top = profile_calls(fn, reps)
+        emit("profile", run=label, **out[label], top=top)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# training
+# --------------------------------------------------------------------------- #
+
+TRAIN_BATCH = 24                  # run_steps/config/train.yaml
+TRAIN_SAMPLES, VAL_SAMPLES = 96, 48
+TRAIN_RTOL = 1e-4
+GRAD_F64_BOUND = 1e-6
+
+
+def train_model(cfg, dev, seed=SEED):
+    from mmfn_tpu_torch.models import build_model
+
+    return build_model(cfg, "rad", torch.Generator().manual_seed(seed), device=dev)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b| (1 where b is all zero and a is not)."""
+    scale = float(b.abs().max())
+    diff = float((a.double() - b.double()).abs().max())
+    return diff / scale if scale else float(diff > 0)
+
+
+def running_stats(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+
+
+def stay_f32(model, what: str) -> None:
+    require(all(v.dtype == torch.float32 for k, v in model.state_dict().items()
+                if not k.endswith("num_batches_tracked")),
+            f"{what}: parameters and BN buffers stay f32")
+
+
+def cycle_batches(cache, n: int, first_seed: int):
+    """``n`` shuffled batch-24 gathers, epoch after epoch."""
+    out, epoch = [], 0
+    while len(out) < n:
+        for b in cache.batches(TRAIN_BATCH, shuffle=True, seed=first_seed + epoch):
+            if len(out) == n:
+                break
+            out.append(b)
+        epoch += 1
+    return out
+
+
+def train_data(cfg, dev):
+    from mmfn_tpu_torch.data.device_cache import DeviceDataset, estimate_cache_bytes
+    from mmfn_tpu_torch.data.synthetic import synthetic_samples
+
+    t0 = time.perf_counter()
+    train = DeviceDataset(synthetic_samples(TRAIN_SAMPLES, cfg.max_lanes, seed=SEED + 1),
+                          cfg.max_lanes, need_map=False, device=dev)
+    val = DeviceDataset(synthetic_samples(VAL_SAMPLES, cfg.max_lanes, seed=SEED + 2),
+                        cfg.max_lanes, need_map=False, device=dev)
+    estimate = estimate_cache_bytes(TRAIN_SAMPLES, cfg.max_lanes, need_map=False)
+    emit("train_data", seconds=time.perf_counter() - t0, train_bytes=train.nbytes,
+         val_bytes=val.nbytes, estimate_train_bytes=estimate)
+    require(0 < train.nbytes <= estimate, f"cache {train.nbytes} B within its estimate {estimate}")
+    return train, val
+
+
+def train_f32(cfg, dev, ops, train, val, logdir):
+    """3 warm-up steps and 5 epochs of 4 batch-24 steps, each epoch ending in
+    its one host fetch; then validation through the fused attention kernel
+    against the plain attention on the same weights."""
+    from mmfn_tpu_torch.models.gpt import SelfAttention
+    from mmfn_tpu_torch.train import Engine
+
+    model = train_model(cfg, dev)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    engine = Engine(model, cfg, logdir)
+    state = engine.initial_state()
+    ops.reset_launch_counts()
+    for b in cycle_batches(train, 3, SEED):
+        engine.train_step(state, b, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps_per_epoch = TRAIN_SAMPLES // TRAIN_BATCH
+    step_ms = []
+    for epoch in range(5):
+        t0 = time.perf_counter()
+        engine.train(state, train.batches(TRAIN_BATCH, shuffle=True, seed=epoch + SEED * 10007),
+                     SEED)
+        step_ms.append((time.perf_counter() - t0) * 1e3 / steps_per_epoch)
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    require(all(np.isfinite(engine.train_loss)), f"finite losses {engine.train_loss}")
+    require(not any(train_launches.values()),
+            f"the train step runs no fused kernel (plain attention, cached BEV): {train_launches}")
+    stay_f32(model, "f32 training")
+    unmoved = [k for k, p in model.named_parameters() if torch.equal(p, start[k])]
+    # softmax ignores the key bias, so its gradient is zero up to rounding
+    require(all(k.endswith("attn.key.bias") for k in unmoved), f"parameters moved: {unmoved}")
+    stats = running_stats(model)
+    require(all(not torch.equal(v, start[k]) for k, v in stats.items()), "BN statistics moved")
+
+    val_batches = list(val.batches(TRAIN_BATCH))
+    ops.reset_launch_counts()
+    val_loss = engine.validate(state, val_batches)
+    val_launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    attn = [m for m in model.modules() if isinstance(m, SelfAttention)]
+    for m in attn:
+        m.attn_impl = "xla"
+    val_plain = engine.validate(state, val_batches)
+    for m in attn:
+        m.attn_impl = "pallas"
+    require(val_launches["fused_attention"] == 32 * len(val_batches) and
+            not val_launches["bev_hist"],
+            f"32 attention launches per validation forward: {val_launches}")
+    require(np.isfinite(val_loss) and abs(val_loss - val_plain) <= TRAIN_RTOL * abs(val_plain),
+            f"validation loss {val_loss} with the kernel, {val_plain} with the plain attention")
+    out = {"samples_per_s": TRAIN_BATCH / (statistics.median(step_ms) / 1e3),
+           "step_ms_median": statistics.median(step_ms), "step_ms_by_epoch": step_ms,
+           "peak_bytes": peak, "epoch_losses": engine.train_loss, "val_loss": val_loss,
+           "val_loss_plain": val_plain, "unmoved_parameters": unmoved,
+           "train_launches": train_launches, "val_launches": val_launches,
+           "val_forwards": len(val_batches)}
+    emit("train_f32", **out)
+    return engine, state, out
+
+
+def profile_training(label, engine, state, train, step_ms, reps: int = 5):
+    """Where a train step's time goes: torch.profiler over ``reps`` steps,
+    each a device gather of its batch, forward, backward and AdamW, ending in
+    a synchronize. The profiler slows the host, so the idle share is also
+    given against ``step_ms``, the unprofiled step time."""
+    batches = iter(cycle_batches(train, reps + 1, SEED + 100))
+
+    def step():
+        engine.train_step(state, next(batches), SEED)
+        torch.cuda.synchronize()
+
+    step()
+    out, top = profile_calls(step, reps)
+    out["device_idle_share_unprofiled"] = 1 - out["device_busy_ms_per_call"] / step_ms
+    emit("train_profile", run=label, **out, top=top)
+    return out
+
+
+def train_bf16(cfg, dev, train, logdir):
+    """3 warm-up and 10 timed bf16 steps, then their profile."""
+    from mmfn_tpu_torch.train import Engine
+
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    model = train_model(cfg16, dev)
+    engine = Engine(model, cfg16, logdir)
+    state = engine.initial_state()
+    batches = cycle_batches(train, 13, SEED + 200)
+    for b in batches[:3]:
+        engine.train_step(state, b, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = torch.stack([engine.train_step(state, b, SEED) for b in batches[3:]]).tolist()
+    seconds = time.perf_counter() - t0
+    out = {"samples_per_s": TRAIN_BATCH * len(losses) / seconds,
+           "step_ms_mean": seconds * 1e3 / len(losses),
+           "peak_bytes": torch.cuda.max_memory_allocated(), "losses": losses}
+    emit("train_bf16", **out)
+    require(all(np.isfinite(losses)), f"finite bf16 losses {losses}")
+    stay_f32(model, "bf16 training")
+    require(all(s.dtype == torch.float32 for group in state.optimizer.state.values()
+                for s in group.values() if s.dim()), "bf16 training: AdamW moments stay f32")
+    profile_training("bf16", engine, state, train, out["step_ms_mean"])
+    return out
+
+
+def train_remat(cfg, dev, train):
+    """One f32 step with remat against a plain one, from the same weights,
+    batch and seed: a double BN update would show in the running stats."""
+    from mmfn_tpu_torch.train import create_train_state, make_train_step
+
+    batch = cycle_batches(train, 1, SEED + 300)[0]
+    runs = {}
+    for remat in (False, True):
+        c = cfg.replace(remat=remat)
+        model = train_model(c, dev)
+        state = create_train_state(model, c)
+        step = make_train_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(step(state, batch, SEED))
+        runs[remat] = (loss, running_stats(model), torch.cuda.max_memory_allocated())
+        del model, state, step
+        torch.cuda.empty_cache()
+    (loss_p, stats_p, peak_p), (loss_r, stats_r, peak_r) = runs[False], runs[True]
+    stats_err = max(rel_err(stats_r[k], stats_p[k]) for k in stats_p)
+    out = {"loss_plain": loss_p, "loss_remat": loss_r, "stats_max_rel_err": stats_err,
+           "peak_bytes_plain": peak_p, "peak_bytes_remat": peak_r}
+    emit("train_remat", **out)
+    require(abs(loss_r - loss_p) <= TRAIN_RTOL * abs(loss_p), f"remat loss: {out}")
+    require(stats_err <= TRAIN_RTOL, f"remat BN statistics: {out}")
+    require(all(int(v) == 1 for k, v in stats_r.items() if k.endswith("num_batches_tracked")),
+            "remat: each BN counted one update")
+    return out
+
+
+def train_gpu_vs_cpu(dev):
+    """One step of the port on the card and one on the CPU from the same
+    weights and batch: n_layer 1, 64 px, batch 4, dropouts 0. In f32 the
+    losses agree within TRAIN_RTOL. The gradients are held to each other in
+    float64, every tensor within GRAD_F64_BOUND in the relative L2 norm
+    (floored at 1e-6 of the largest gradient element): this randomised
+    network amplifies f32 rounding to about 1e-2 in some tensors
+    (tests/test_torch_train_parity.py), which would hide a wrong gradient,
+    and float64 rounding to far below the bound. The f32 gradients' worst
+    relative error is reported."""
+    from mmfn_tpu_torch.config import GlobalConfig
+    from mmfn_tpu_torch.data.synthetic import synthetic_batch
+    from mmfn_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = GlobalConfig(n_layer=1, max_lanes=8, embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0)
+
+    def one_step(where, dtype):
+        model = train_model(cfg, where).to(dtype)
+        state = create_train_state(model, cfg)
+        batch = synthetic_batch(4, cfg.max_lanes, seed=SEED, resolution=64, device=where)
+        batch = batch._replace(**{f: v.to(dtype) for f, v in batch._asdict().items()
+                                  if v is not None and v.is_floating_point()})
+        loss = float(make_train_step()(state, batch, SEED))
+        return loss, {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+    def worst(got, want):
+        floor = 1e-6 * max(float(g.abs().max()) for g in want.values())
+        errors = {k: float((got[k].double() - g.double()).norm()) / max(float(g.norm()), floor)
+                  for k, g in want.items()}
+        key = max(errors, key=errors.get)
+        return key, errors[key]
+
+    cpu = torch.device("cpu")
+    (loss_g, grads_g), (loss_c, grads_c) = (one_step(d, torch.float32) for d in (dev, cpu))
+    (loss_g64, grads_g64), (loss_c64, grads_c64) = (one_step(d, torch.float64)
+                                                    for d in (dev, cpu))
+    f32_key, f32_err = worst(grads_g, grads_c)
+    f64_key, f64_err = worst(grads_g64, grads_c64)
+    out = {"loss_gpu": loss_g, "loss_cpu": loss_c, "loss_gpu_f64": loss_g64,
+           "loss_cpu_f64": loss_c64, "grad_f64_max_rel_l2": f64_err, "grad_f64_worst": f64_key,
+           "grad_f32_max_rel_l2": f32_err, "grad_f32_worst": f32_key, "tensors": len(grads_c)}
+    emit("train_gpu_vs_cpu", **out)
+    require(abs(loss_g - loss_c) <= TRAIN_RTOL * abs(loss_c), f"GPU against CPU loss: {out}")
+    require(grads_g64.keys() == grads_c64.keys() and f64_err <= GRAD_F64_BOUND,
+            f"GPU against CPU float64 gradients: {out}")
+    return out
+
+
+def train_resume(cfg, dev, train, val, tmp):
+    """2 steps, save, resume into a fresh Engine and model, 1 step; against 3
+    uninterrupted steps, each run validating after steps 2 and 3. The
+    resumed AdamW state (exp_avg, exp_avg_sq and step of every parameter)
+    must equal the saved one exactly. The train losses are held at rtol
+    1e-4, the validation losses at 1e-2, a sanity check: the
+    eval-mode loss of a net 2 steps from its initialisation (3.7, against
+    0.85 in training; its BN running statistics have moved twice) amplifies
+    the card's run-to-run differences (atomics in backward kernels such as
+    the bilinear upsampling's) to 1e-4 - 2e-3 between two runs of the same
+    3 steps, measured with cuDNN's deterministic algorithms on and off."""
+    from mmfn_tpu_torch.train import Engine
+
+    batches = cycle_batches(train, 3, SEED + 400)
+    val_batch = list(val.batches(TRAIN_BATCH))[:1]
+
+    def epoch(engine, state, part):
+        engine.train(state, part, SEED)
+        engine.validate(state, val_batch)
+        engine.save(state)
+        return state
+
+    straight = Engine(train_model(cfg, dev), cfg, os.path.join(tmp, "straight"))
+    epoch(straight, epoch(straight, straight.initial_state(), batches[:2]), batches[2:])
+    first = Engine(train_model(cfg, dev), cfg, os.path.join(tmp, "split"))
+    saved = epoch(first, first.initial_state(), batches[:2]).optimizer.state_dict()
+    saved = {i: {k: v.detach().cpu().clone() for k, v in s.items()}
+             for i, s in saved["state"].items()}
+    del first
+    torch.cuda.empty_cache()
+    second = Engine(train_model(cfg, dev, seed=SEED + 1), cfg, os.path.join(tmp, "split"))
+    resumed = second.resume(second.initial_state())
+    require(resumed is not None and resumed.step == 2, "resumed at step 2")
+    restored = resumed.optimizer.state_dict()["state"]
+    require(restored.keys() == saved.keys() and all(
+        s.keys() == restored[i].keys() and all(torch.equal(v, restored[i][k].cpu())
+                                               for k, v in s.items())
+        for i, s in saved.items()), "resume restores the AdamW state exactly")
+    del saved, restored
+    epoch(second, resumed, batches[2:])
+    logs = []
+    for d in ("straight", "split"):
+        with open(os.path.join(tmp, d, "recent.log")) as f:
+            logs.append(json.load(f))
+    out = {"cur_iter": [straight.cur_iter, second.cur_iter],
+           "train_loss": [logs[0]["train_loss"], logs[1]["train_loss"]],
+           "val_loss": [logs[0]["val_loss"], logs[1]["val_loss"]]}
+    emit("train_resume", **out)
+    require(straight.cur_iter == second.cur_iter == 3, f"cur_iter: {out}")
+    require(logs[0].keys() == logs[1].keys() and all(
+        logs[0][k] == logs[1][k] for k in ("epoch", "iter", "bestval_epoch")), f"recent.log: {logs}")
+    for k, rtol in (("train_loss", TRAIN_RTOL), ("val_loss", 1e-2)):
+        require(len(logs[0][k]) == len(logs[1][k]) == 2 and all(
+            abs(a - b) <= rtol * abs(a) for a, b in zip(logs[0][k], logs[1][k])),
+            f"recent.log {k}: {out}")
+    return out
+
+
+def run_training(cfg, dev, ops):
+    """The training phase: full-width MMFN-rad at batch 24 from the GPU
+    data cache, in f32 and bf16, with validation through the fused attention
+    kernel, then the remat, GPU-against-CPU and save/resume checks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        train, val = train_data(cfg, dev)
+        engine, state, f32 = train_f32(cfg, dev, ops, train, val, os.path.join(tmp, "f32"))
+        prof = profile_training("f32", engine, state, train, f32["step_ms_median"])
+        del engine, state
+        torch.cuda.empty_cache()
+        bf16 = train_bf16(cfg, dev, train, os.path.join(tmp, "bf16"))
+        torch.cuda.empty_cache()
+        remat = train_remat(cfg, dev, train)
+        train_gpu_vs_cpu(dev)
+        train_resume(cfg, dev, train, val, tmp)
+    summary = {"batch": TRAIN_BATCH, "f32_samples_per_s": f32["samples_per_s"],
+               "bf16_samples_per_s": bf16["samples_per_s"],
+               "f32_step_ms_median": f32["step_ms_median"],
+               "f32_peak_bytes": f32["peak_bytes"], "bf16_peak_bytes": bf16["peak_bytes"],
+               "one_step_peak_bytes": {"plain": remat["peak_bytes_plain"],
+                                       "remat": remat["peak_bytes_remat"]},
+               "device_idle_share": prof["device_idle_share"],
+               "device_idle_share_unprofiled": prof["device_idle_share_unprofiled"],
+               "device_busy_ms_per_step": prof["device_busy_ms_per_call"],
+               "device_ops_per_step": prof["device_ops_per_call"],
+               "val_attention_launches_per_forward":
+                   f32["val_launches"]["fused_attention"] / f32["val_forwards"]}
+    emit("train_summary", **summary)
+    return summary
 
 
 def main() -> int:
@@ -412,6 +773,7 @@ def main() -> int:
     serving = time_serving(pipe, payloads)
     prof = profile_serving(pipe, payloads)
     rows = time_kernels(lidar, attention, dev, rng)
+    run_training(cfg, dev, ops)
 
     # one batch-1 forward: one BEV launch, 8 attention launches per stage shape
     per_forward = [rows[f"attention_b1_t{t}_d{d}"] for t, d in STAGE_SHAPES]

@@ -2,9 +2,10 @@
 
 The port's own copy of the JAX package's ``GlobalConfig``: the same fields
 with the same defaults, so a configuration carries across unchanged and a
-converted checkpoint produces identical shapes. Fields that only the JAX
-package reads (``compute_dtype``, ``remat``, ``checkpoint_backend``,
-``matmul_precision``, ``mesh_axes``) are kept for that reason.
+converted checkpoint produces identical shapes. The training engine reads
+``compute_dtype``, ``checkpoint_backend`` and (through the ResNets)
+``remat``; fields that only the JAX package reads (``matmul_precision``,
+``mesh_axes``) are kept for that reason.
 
 ``attn_impl`` keeps its two values: ``"xla"`` selects the plain
 matmul-softmax attention, ``"pallas"`` the port's hand-written fused CUDA

@@ -1,3 +1,4 @@
 """The MMFN model family (img, vec, rad) as torch modules."""
 
 from mmfn_tpu_torch.models.mmfn import MMFN, build_model  # noqa: F401
+from mmfn_tpu_torch.models.registry import get_entry_point  # noqa: F401

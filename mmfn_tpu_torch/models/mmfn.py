@@ -8,6 +8,10 @@
   which then fuses 4 token groups (T = 256).
 
 Forward contract: Batch (NHWC images and BEV) -> (B, pred_len, 2) waypoints.
+Training is ``model.train()`` on a model from :func:`build_model`: dropout
+on, BatchNorm from batch statistics (``models/resnet.py``), the plain
+attention path (``models/gpt.py``), and per-block remat when
+``config.remat``.
 Stream order inside each fusion call is [image, lidar, map(, radar)]. Kept
 on purpose from the reference: camera pixels are raw 0-255 through the
 ImageNet affine, the map image is not normalized, and the fused feature is
@@ -42,17 +46,17 @@ STAGE_EMBD = (64, 128, 256, 512)
 class ImageCNN(nn.Module):
     """Holder that gives the camera and map ResNets the key ``features``."""
 
-    def __init__(self, first_stage: int = 1):
+    def __init__(self, first_stage: int = 1, remat: bool = False):
         super().__init__()
-        self.features = resnet34(3, first_stage)
+        self.features = resnet34(3, first_stage, remat)
 
 
 class LidarEncoder(nn.Module):
     """Holder that gives the 2-channel BEV ResNet18 the key ``_model``."""
 
-    def __init__(self):
+    def __init__(self, remat: bool = False):
         super().__init__()
-        self._model = resnet18(2)
+        self._model = resnet18(2, remat=remat)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -64,10 +68,11 @@ class MMFNEncoder(nn.Module):
         super().__init__()
         cfg = config
         self.config, self.variant = cfg, variant
-        self.image_encoder = ImageCNN()
+        self.image_encoder = ImageCNN(remat=cfg.remat)
         # vec/rad seed the map stream at layer2: no stem or layer1 there
-        self.img_map_encoder = ImageCNN(first_stage=1 if variant == "img" else 2)
-        self.lidar_encoder = LidarEncoder()
+        self.img_map_encoder = ImageCNN(first_stage=1 if variant == "img" else 2,
+                                        remat=cfg.remat)
+        self.lidar_encoder = LidarEncoder(remat=cfg.remat)
         if variant in ("vec", "rad"):
             self.vectornet_encoder = VectornetEncoder()
         if variant == "rad":

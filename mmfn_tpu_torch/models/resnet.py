@@ -6,58 +6,126 @@ Parameter names are torchvision's (``conv1``, ``bn1``, ``layer2.0.downsample.0``
 ...), so reference checkpoints load unchanged. BatchNorm eps is 1e-5 and runs
 from its running statistics in eval mode.
 
+**BatchNorm running variance.** In train mode :class:`BatchNorm2d` normalises
+with the biased batch variance, as stock torch does, but it also updates
+``running_var`` with the BIASED variance, as the JAX package's flax
+``nn.BatchNorm(momentum=0.9)`` does. Stock torch updates it with the unbiased
+one, larger by a factor of n/(n-1) for n values per channel. The port follows
+the JAX package, the reference it is held to; the state_dict keys are
+torch's.
+
+**Remat.** ``remat=True`` (``GlobalConfig.remat``) runs each BasicBlock in
+training under ``torch.utils.checkpoint`` (non-reentrant), as the JAX package
+wraps each block in ``nn.remat``: the backward recomputes the block's
+activations instead of keeping them. The recomputation runs the block's
+BatchNorms again in train mode; they skip their running-stat update there,
+so the stats are updated once per step, as without remat.
+
 ``first_stage=2`` builds a backbone without ``conv1``/``bn1``/``layer1``: the
 vec and rad map streams are seeded at layer2 by VectorNet and never run them.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Iterator, Sequence
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mmfn_tpu_torch.models.common import max_pool_3x3_s2_p1
 
 WIDTHS = (64, 128, 256, 512)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update of ``running_var`` uses the
+    biased batch variance (flax's rule; see the module docstring). Set
+    ``update_stats`` False to normalise by batch statistics without touching
+    the running ones."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # One pass: torch's op leaves (1 - m) * old + m * the unbiased batch
+        # variance in ``var``; moving (1 - m) * old by (n - 1) / n of the way
+        # to it adds m * the biased one. Autograd keeps the running_var the
+        # op was given, so it gets a copy; remat's recomputation
+        # (update_stats False) gets copies of both, updates them and drops
+        # them.
+        m = self.momentum
+        mean = self.running_mean if self.update_stats else self.running_mean.clone()
+        var = self.running_var.clone()
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, m, self.eps)
+        if self.update_stats:
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                self.running_var.mul_(1 - m).lerp_(var, (n - 1) / n)
+                self.num_batches_tracked.add_(1)
+        return out
+
+
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, stride: int):
+    def __init__(self, cin: int, cout: int, stride: int, remat: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn1 = BatchNorm2d(cout, eps=1e-5)
         self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn2 = BatchNorm2d(cout, eps=1e-5)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride, bias=False), nn.BatchNorm2d(cout, eps=1e-5))
+                nn.Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout, eps=1e-5))
+        self.remat = remat
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         return F.relu(out + identity)
+
+    @contextlib.contextmanager
+    def _frozen_stats(self) -> Iterator[None]:
+        """The recomputation's context: batch statistics, no stat update."""
+        norms = [m for m in self.modules() if isinstance(m, BatchNorm2d)]
+        for m in norms:
+            m.update_stats = False
+        try:
+            yield
+        finally:
+            for m in norms:
+                m.update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(self._block, x, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  self._frozen_stats()))
+        return self._block(x)
 
 
 class ResNet(nn.Module):
     """Staged ResNet; ``stage_sizes`` (2,2,2,2) is resnet18, (3,4,6,3) resnet34."""
 
     def __init__(self, stage_sizes: Sequence[int], in_channels: int = 3,
-                 first_stage: int = 1):
+                 first_stage: int = 1, remat: bool = False):
         super().__init__()
         self.first_stage = first_stage
         if first_stage == 1:
             self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-            self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+            self.bn1 = BatchNorm2d(64, eps=1e-5)
         for i, (width, blocks) in enumerate(zip(WIDTHS, stage_sizes)):
             if i + 1 < first_stage:
                 continue
             cin = WIDTHS[max(i - 1, 0)]
             layer = [BasicBlock(cin if j == 0 else width, width,
-                                2 if (i > 0 and j == 0) else 1) for j in range(blocks)]
+                                2 if (i > 0 and j == 0) else 1, remat) for j in range(blocks)]
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,9 +142,9 @@ class ResNet(nn.Module):
         return x.mean(dim=(2, 3))
 
 
-def resnet18(in_channels: int = 3, first_stage: int = 1) -> ResNet:
-    return ResNet((2, 2, 2, 2), in_channels, first_stage)
+def resnet18(in_channels: int = 3, first_stage: int = 1, remat: bool = False) -> ResNet:
+    return ResNet((2, 2, 2, 2), in_channels, first_stage, remat)
 
 
-def resnet34(in_channels: int = 3, first_stage: int = 1) -> ResNet:
-    return ResNet((3, 4, 6, 3), in_channels, first_stage)
+def resnet34(in_channels: int = 3, first_stage: int = 1, remat: bool = False) -> ResNet:
+    return ResNet((3, 4, 6, 3), in_channels, first_stage, remat)

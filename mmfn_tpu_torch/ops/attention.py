@@ -76,14 +76,27 @@ def _kernel_strides(q: torch.Tensor, k: torch.Tensor,
     return tuple(strides)
 
 
+def _refuse_autograd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise RuntimeError when autograd would need the kernel's gradient: the
+    kernel has no backward, so its output would silently carry none. Needs
+    no GPU."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("fused_attention: the CUDA kernel has no backward, but "
+                           "autograd is on and q, k or v requires grad; run it under "
+                           "torch.inference_mode() or torch.no_grad() (training "
+                           "takes the plain attention path)")
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v for (B, H, T, D) f32 tensors, strided as the
     module docstring allows. On the GPU the result is the transposed view of a
-    contiguous (B, T, H, D) buffer."""
+    contiguous (B, T, H, D) buffer; it raises there when autograd would need
+    a gradient through it."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"q: expected a CUDA tensor, got {q.device}")
+    _refuse_autograd(q, k, v)
     q_s, k_s, v_s = _kernel_strides(q, k, v)
     b, h, t, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
