@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero before the last line:
      N = 0, and on a cloud with all 65,536 points in one cell (1.0 there, 0
      elsewhere);
   3. fused attention kernel vs its plain PyTorch version at every main-path
-     shape (T in {192, 256}, D in {16, 32, 64, 128}, B in {1, 8}, H = 4),
-     at T = 128, a ragged T, T = 1 and T = 3072, each with q, k, v
+     shape (T in {192, 256}, D in {16, 32, 64, 128}, B in {1, 8}, H = 4;
+     TransFuser's T = 128 with D in {16, 32, 64, 128} at B = 1), at T = 128
+     with B = 8, a ragged T, T = 1 and T = 3072, each with q, k, v
      contiguous and in the projection layout the model passes (strided
      views of a (B, T, H*D) tensor), within rtol/atol 1e-5; the result must
      be the transposed view of a contiguous (B, T, H, D) buffer;
@@ -28,13 +29,24 @@ Phases, in order; any failure exits non-zero before the last line:
      launches and 1 BEV launch per forward, and must agree with the same
      weights served with the plain attention on the GPU and with the plain
      versions of everything on the CPU;
-  5. time batch-1 request latency and batch-8 frames/s, profile both
-     (torch.profiler: device busy time, idle share, top kernels), and time
-     each kernel at its main-path shapes (CUDA events, after warm-up; the
-     attention in the projection layout; the BEV histogram with clusters of
-     8 and 16, interleaved, and as the wrapper picks it) beside its plain version, SDPA for attention,
-     and its bounds on the H100;
-  6. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
+  5. time batch-1 request latency and batch-8 frames/s, and profile both
+     (torch.profiler: device busy time, idle share, top kernels);
+  6. serve the AIM, CILRS and TransFuser baselines at full width (the same
+     config and seed) through the port's ``BaselineAgent``: 4 ticks of
+     synthetic sensors (a 300x400 BGRA camera, gps, imu, speed; for
+     TransFuser 2 x 32,768 LiDAR points, its first tick only buffering) on a
+     straight route, launch counters set to 0 just before and read just
+     after: per forward 32 attention launches and 1 BEV launch for
+     TransFuser, none for AIM and CILRS. The raw output of the last tick
+     must agree with the same weights under the plain attention on the GPU
+     and with the plain versions on the CPU; then the median of 25 timed
+     ticks and a profile of 5 (device ops per forward);
+  7. time each kernel at its main-path shapes (CUDA events, after warm-up;
+     the attention in the projection layout, also at TransFuser's shapes;
+     the BEV histogram with clusters of 8 and 16, interleaved, and as the
+     wrapper picks it, also at TransFuser's 1 x 65,536 f32) beside its plain
+     version, SDPA for attention, and its bounds on the H100;
+  8. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
      24 from 96 synthetic samples in the GPU data cache (``DeviceDataset``,
      no map column): f32 (3 warm-up steps, then 5 epochs of 4 steps, one host
      fetch each; finite losses; parameters and BN buffers f32 and moved; no
@@ -46,11 +58,18 @@ Phases, in order; any failure exits non-zero before the last line:
      memories), one step at n_layer 1 / 64 px / batch 4 on the card against
      the CPU (loss rtol 1e-4, parameters within 2.5 lr), and 2 steps + save +
      resume + 1 step against 3 uninterrupted steps (loss rtol 1e-4, the same
-     iteration count and recent.log).
+     iteration count and recent.log);
+  9. train each baseline 4 f32 steps at batch 24 from the same data cache
+     (CILRS on its control loss; finite losses, every parameter moved, the
+     last 3 steps timed), then validate TransFuser on 2 batches through the
+     fused attention (32 launches a forward, within rtol 1e-4 of the plain
+     attention's loss).
 
 Output: JSON lines per phase (the summary has the device ops per batch-1
-forward; ``train_summary`` the training rates, peak memory, idle share and
-device ops per step), then a ``kernels`` line, the GPU's name and
+forward; ``baseline_summary`` the baselines' tick latency and device ops
+per forward; ``train_summary`` the training rates, peak memory, idle share
+and device ops per step), then a ``kernels`` line whose launches count both
+served paths, MMFN-rad's and the baselines', the GPU's name and
 power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 TF32 is off for matmuls and cuDNN convolutions throughout.
@@ -80,8 +99,11 @@ ATTN_TOL = dict(rtol=1e-5, atol=1e-5)      # f32 sums in another order
 WAYPOINT_TOL = dict(rtol=1e-4, atol=2e-3)   # kernels vs plain, same GPU
 CPU_TOL = dict(rtol=1e-3, atol=1e-2)        # GPU vs CPU convolution algorithms
 STAGE_SHAPES = ((192, 16), (192, 32), (192, 64), (256, 128))   # (T, D) by fusion stage
-# T = 128 is the TransFuser baseline's; 200 is ragged; 1 and 3072 are the ends
+# TransFuser's (T, D) by fusion stage: 2 token groups of 64, at batch 1
+TRANSFUSER_SHAPES = ((128, 16), (128, 32), (128, 64), (128, 128))
+# T = 128 at batch 8 too; 200 is ragged; 1 and 3072 are the ends
 EXTRA_ATTN_SHAPES = ((128, 64), (200, 32), (1, 16), (3072, 128))
+BASELINES = ("aim", "cilrs", "transfuser")
 HOT_CELL = (1.0, 1.0, 1.0)   # -> ix 136, iy 200, channel 1
 
 
@@ -242,7 +264,8 @@ def check_attention(attention, dev):
     err = 0.0
     main_path = [(t, d) for t in (192, 256) for d in (16, 32, 64, 128)]
     for b in (1, 8):
-        for t, d in main_path + list(EXTRA_ATTN_SHAPES):
+        baseline_path = list(TRANSFUSER_SHAPES) if b == 1 else []
+        for t, d in main_path + baseline_path + list(EXTRA_ATTN_SHAPES):
             for layout in ("contiguous", "projection"):
                 q, k, v = attention_inputs(b, t, d, layout, g, dev)
                 got = attention.fused_attention(q, k, v)
@@ -254,7 +277,7 @@ def check_attention(attention, dev):
                 require(got.shape == (b, 4, t, d) and got.transpose(1, 2).is_contiguous(),
                         f"attention output is the transposed view of a (B, T, H, D) buffer: "
                         f"shape {tuple(got.shape)}, strides {got.stride()}")
-                if (t, d) in STAGE_SHAPES:
+                if (t, d) in STAGE_SHAPES or (t, d) in baseline_path:
                     err = max(err, diff)
     return err
 
@@ -335,7 +358,7 @@ def time_kernels(lidar, attention, dev, rng):
 
     rows = {}
     for name, b, dtype in (("serving", 1, torch.float16), ("bench", 8, torch.float32),
-                           ("fleet", 8, torch.float16)):
+                           ("fleet", 8, torch.float16), ("transfuser", 1, torch.float32)):
         pts = torch.from_numpy(np.stack([padded(lidar_sweep(rng, 60000), 65536)
                                          for _ in range(b)])).to(dev, dtype)
         nbytes = pts.numel() * pts.element_size() + b * 256 * 256 * 2 * 4
@@ -352,15 +375,15 @@ def time_kernels(lidar, attention, dev, rng):
                                "plain_ms": cuda_ms(lambda: lidar.bev_histogram_plain(pts)),
                                "library_ms": None, **bound(nbytes, ops)}
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    for b in (1, 8):
-        for t, d in STAGE_SHAPES:
-            q, k, v = attention_inputs(b, t, d, "projection", g, dev)
-            rows[f"attention_b{b}_t{t}_d{d}"] = {
-                "shape": [b, 4, t, d], "layout": "projection",
-                "ms": cuda_ms(lambda: attention.fused_attention(q, k, v)),
-                "plain_ms": cuda_ms(lambda: attention.attention_plain(q, k, v)),
-                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-                **attention_bounds(q)}
+    shapes = [(b, t, d) for b in (1, 8) for t, d in STAGE_SHAPES]
+    for b, t, d in shapes + [(1, t, d) for t, d in TRANSFUSER_SHAPES]:
+        q, k, v = attention_inputs(b, t, d, "projection", g, dev)
+        rows[f"attention_b{b}_t{t}_d{d}"] = {
+            "shape": [b, 4, t, d], "layout": "projection",
+            "ms": cuda_ms(lambda: attention.fused_attention(q, k, v)),
+            "plain_ms": cuda_ms(lambda: attention.attention_plain(q, k, v)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            **attention_bounds(q)}
     for key, row in rows.items():
         emit("kernel_time", name=key, **row)
     return rows
@@ -402,6 +425,144 @@ def profile_serving(pipe, payloads, reps: int = 10):
         torch.cuda.synchronize()
         out[label], top = profile_calls(fn, reps)
         emit("profile", run=label, **out[label], top=top)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# the baselines, served in the closed-loop agent
+# --------------------------------------------------------------------------- #
+
+BASELINE_TICKS = 4                # counted ticks per agent; TransFuser's first only buffers
+POINTS_PER_SWEEP = 32768
+
+
+def straight_plan(route_option):
+    """A straight 100 m route along x: (gps plan, world plan), the gps plan
+    in the evaluator's linear convention."""
+    from mmfn_tpu_torch.control.planner import GPS_SCALE
+
+    world = [((float(x), 0.0), route_option) for x in range(100)]
+    return [({"lat": x / GPS_SCALE[0], "lon": y / GPS_SCALE[1], "z": 0.0}, o)
+            for (x, y), o in world], world
+
+
+def sensor_ticks(rng, n, lidar):
+    """``n`` sensor dicts as the harness hands them to an agent: a 300x400
+    BGRA camera, gps along the route, imu, speed and, with ``lidar``, one
+    sweep of 32,768 points [x, y, z, intensity]."""
+    from mmfn_tpu_torch.control.planner import GPS_SCALE
+
+    ticks = []
+    for i in range(n):
+        x, y = 0.5 * i + rng.uniform(-0.2, 0.2), rng.uniform(-0.5, 0.5)
+        tick = {"rgb": (i, rng.integers(0, 256, size=(300, 400, 4)).astype(np.uint8)),
+                "gps": (i, np.array([x / GPS_SCALE[0], y / GPS_SCALE[1], 0.0])),
+                "imu": (i, np.array([0.0, 0.0, 9.81, 0.0, 0.0, 0.0, rng.uniform(-0.1, 0.1)])),
+                "speed": (i, {"speed": float(rng.uniform(0.0, 8.0))})}
+        if lidar:
+            sweep = lidar_sweep(rng, POINTS_PER_SWEEP)
+            tick["lidar"] = (i, np.concatenate(
+                [sweep, rng.uniform(0, 1, (POINTS_PER_SWEEP, 1)).astype(np.float32)], 1))
+        ticks.append(tick)
+    return ticks
+
+
+def flat(out) -> np.ndarray:
+    """A raw model output (waypoints, or CILRS's four tensors) as one array."""
+    if isinstance(out, (tuple, list)):
+        return torch.cat([o.reshape(-1) for o in out]).cpu().numpy()
+    return out.cpu().numpy()
+
+
+def serve_baseline(name, cfg, dev, ops, rng, gpu):
+    """One baseline in the port's BaselineAgent at full width: counted ticks
+    (launch counters set to 0 just before and read just after), its raw
+    output against plain attention on the GPU and plain everything on the
+    CPU, then tick latency and a profile."""
+    import copy
+
+    from mmfn_tpu_torch.harness.agents import BaselineAgent
+    from mmfn_tpu_torch.harness.route import RoadOption
+    from mmfn_tpu_torch.models import build_baseline
+    from mmfn_tpu_torch.models.gpt import SelfAttention
+
+    t0 = time.perf_counter()
+    model = build_baseline(name, cfg, torch.Generator().manual_seed(SEED), device=dev)
+    agent = BaselineAgent({"kind": name, "model": model, "config": cfg, "device": dev,
+                           "points_per_sweep": POINTS_PER_SWEEP})
+    agent.set_global_plan(*straight_plan(RoadOption.LANEFOLLOW))
+    calls = []
+    forward = agent._forward
+
+    def recording(*args):
+        out = forward(*args)
+        calls.append((args, out))
+        return out
+    agent._forward = recording
+    lidar = name == "transfuser"
+    ticks = sensor_ticks(rng, BASELINE_TICKS, lidar)
+    setup_s = time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    controls = [agent.run_step(tick, 0.05 * i) for i, tick in enumerate(ticks)]
+    launches = {k: kernel.launches for k, kernel in ops.KERNELS.items()}
+    forwards = len(calls)
+    require(forwards == BASELINE_TICKS - int(lidar), f"{name}: forwards {forwards}")
+    per_forward = {k: v / forwards for k, v in launches.items()}
+    want = ({"fused_attention": 4 * cfg.n_layer, "bev_hist": 1} if lidar
+            else {"fused_attention": 0, "bev_hist": 0})
+    require(per_forward == want, f"{name}: launches per forward {per_forward}, want {want}")
+    outs = [flat(out) for _, out in calls]
+    require(all(np.isfinite(o).all() and o.shape == ((4,) if name == "cilrs" else (1, 4, 2))
+                for o in outs), f"{name}: finite outputs of the right shape")
+    require(all(np.isfinite([c.steer, c.throttle, c.brake]).all() for c in controls),
+            f"{name}: finite controls")
+
+    args = calls[-1][0]
+    attn = [m for m in model.modules() if isinstance(m, SelfAttention)]
+    for m in attn:
+        m.attn_impl = "xla"
+    plain_gpu = flat(agent._forward(*args))
+    for m in attn:
+        m.attn_impl = "pallas"
+    cpu_agent = BaselineAgent({"kind": name, "model": copy.deepcopy(model).cpu(),
+                               "config": cfg, "device": "cpu",
+                               "points_per_sweep": POINTS_PER_SWEEP})
+    plain_cpu = flat(cpu_agent._forward(*args))
+    del cpu_agent
+    np.testing.assert_allclose(outs[-1], plain_gpu, **WAYPOINT_TOL)
+    np.testing.assert_allclose(outs[-1], plain_cpu, **CPU_TOL)
+
+    more = sensor_ticks(rng, 31, lidar)
+    agent.run_step(more[0], 0.0)                 # fills TransFuser's sweep buffer
+    lat = []
+    for i, tick in enumerate(more[1:26]):
+        t1 = time.perf_counter()
+        agent.run_step(tick, 0.05 * i)
+        lat.append((time.perf_counter() - t1) * 1e3)
+    rest = iter(more[26:])
+    prof, top = profile_calls(lambda: agent.run_step(next(rest), 0.0), 5)
+    lat.sort()
+    out = {"model": name, "gpu": gpu, "setup_seconds": setup_s,
+           "parameters": sum(p.numel() for p in model.parameters()),
+           "launches": launches, "forwards": forwards,
+           "tick_ms_median": statistics.median(lat), "tick_ms_p90": lat[int(0.9 * len(lat)) - 1],
+           "device_ops_per_forward": prof["device_ops_per_call"],
+           "device_busy_ms_per_forward": prof["device_busy_ms_per_call"],
+           "device_idle_share": prof["device_idle_share"],
+           "max_abs_vs_plain_gpu": float(np.abs(outs[-1] - plain_gpu).max()),
+           "max_abs_vs_cpu": float(np.abs(outs[-1] - plain_cpu).max()),
+           "max_abs_output": float(np.abs(plain_cpu).max()), "output_0": outs[0].tolist(),
+           "control_last": [controls[-1].steer, controls[-1].throttle, controls[-1].brake]}
+    emit("baseline_serve", **out, top=top)
+    return out
+
+
+def serve_baselines(cfg, dev, ops, rng, gpu):
+    out = {}
+    for name in BASELINES:
+        out[name] = serve_baseline(name, cfg, dev, ops, rng, gpu)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -709,6 +870,62 @@ def train_resume(cfg, dev, train, val, tmp):
     return out
 
 
+BASELINE_TRAIN_STEPS = 4          # the first a warm-up, the other 3 timed
+
+
+def train_baseline(name, cfg, dev, ops, train, val):
+    """A few f32 steps of one baseline at batch 24 from the GPU data cache
+    (CILRS on its control loss, the others on the L1 waypoint loss); finite
+    losses, every parameter moved. TransFuser then validates through the
+    fused attention kernel against the plain attention."""
+    from mmfn_tpu_torch.models import build_baseline
+    from mmfn_tpu_torch.models.gpt import SelfAttention
+    from mmfn_tpu_torch.train import Engine
+
+    with tempfile.TemporaryDirectory() as logdir:
+        model = build_baseline(name, cfg, torch.Generator().manual_seed(SEED), device=dev)
+        start = {k: p.detach().clone() for k, p in model.named_parameters()}
+        engine = Engine(model, cfg, logdir)
+        state = engine.initial_state()
+        batches = cycle_batches(train, BASELINE_TRAIN_STEPS, SEED + 500)
+        ops.reset_launch_counts()
+        losses = [engine.train_step(state, batches[0], SEED)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [engine.train_step(state, b, SEED) for b in batches[1:]]
+        losses = torch.stack(losses).tolist()
+        seconds = time.perf_counter() - t0
+        train_launches = {k: kernel.launches for k, kernel in ops.KERNELS.items()}
+        require(all(np.isfinite(losses)), f"{name}: finite losses {losses}")
+        require(not any(train_launches.values()), f"{name}: the train step runs no fused "
+                f"kernel: {train_launches}")
+        stay_f32(model, f"{name} training")
+        unmoved = [k for k, p in model.named_parameters() if torch.equal(p, start[k])]
+        # softmax ignores the key bias, so its gradient is zero up to rounding
+        require(all(k.endswith("attn.key.bias") for k in unmoved), f"{name}: unmoved {unmoved}")
+        out = {"model": name, "batch": TRAIN_BATCH, "losses": losses,
+               "samples_per_s": TRAIN_BATCH * (len(batches) - 1) / seconds,
+               "step_ms_mean": seconds * 1e3 / (len(batches) - 1),
+               "unmoved_parameters": unmoved}
+        if name == "transfuser":
+            val_batches = list(val.batches(TRAIN_BATCH))
+            ops.reset_launch_counts()
+            val_loss = engine.validate(state, val_batches)
+            val_launches = {k: kernel.launches for k, kernel in ops.KERNELS.items()}
+            attn = [m for m in model.modules() if isinstance(m, SelfAttention)]
+            for m in attn:
+                m.attn_impl = "xla"
+            val_plain = engine.validate(state, val_batches)
+            require(val_launches == {"fused_attention": 4 * cfg.n_layer * len(val_batches),
+                                     "bev_hist": 0}, f"{name}: validation launches {val_launches}")
+            require(np.isfinite(val_loss) and abs(val_loss - val_plain) <= TRAIN_RTOL * abs(val_plain),
+                    f"{name}: validation loss {val_loss} with the kernel, {val_plain} plain")
+            out.update(val_loss=val_loss, val_loss_plain=val_plain, val_launches=val_launches,
+                       val_forwards=len(val_batches))
+    emit("baseline_train", **out)
+    return out
+
+
 def run_training(cfg, dev, ops):
     """The training phase: full-width MMFN-rad at batch 24 from the GPU
     data cache, in f32 and bf16, with validation through the fused attention
@@ -724,6 +941,11 @@ def run_training(cfg, dev, ops):
         remat = train_remat(cfg, dev, train)
         train_gpu_vs_cpu(dev)
         train_resume(cfg, dev, train, val, tmp)
+        torch.cuda.empty_cache()
+        baselines = {}
+        for name in BASELINES:
+            baselines[name] = train_baseline(name, cfg, dev, ops, train, val)
+            torch.cuda.empty_cache()
     summary = {"batch": TRAIN_BATCH, "f32_samples_per_s": f32["samples_per_s"],
                "bf16_samples_per_s": bf16["samples_per_s"],
                "f32_step_ms_median": f32["step_ms_median"],
@@ -735,7 +957,11 @@ def run_training(cfg, dev, ops):
                "device_busy_ms_per_step": prof["device_busy_ms_per_call"],
                "device_ops_per_step": prof["device_ops_per_call"],
                "val_attention_launches_per_forward":
-                   f32["val_launches"]["fused_attention"] / f32["val_forwards"]}
+                   f32["val_launches"]["fused_attention"] / f32["val_forwards"],
+               "baseline_f32_samples_per_s": {k: b["samples_per_s"] for k, b in baselines.items()},
+               "transfuser_val_attention_launches_per_forward":
+                   baselines["transfuser"]["val_launches"]["fused_attention"]
+                   / baselines["transfuser"]["val_forwards"]}
     emit("train_summary", **summary)
     return summary
 
@@ -772,13 +998,24 @@ def main() -> int:
     pipe, payloads, launches = serve(cfg, dev, ops, rng)
     serving = time_serving(pipe, payloads)
     prof = profile_serving(pipe, payloads)
+    del pipe
+    baselines = serve_baselines(cfg, dev, ops, rng, gpu)
     rows = time_kernels(lidar, attention, dev, rng)
     run_training(cfg, dev, ops)
 
+    # the launches of both served paths: MMFN-rad's requests and the baselines' ticks
+    for b in baselines.values():
+        for name, n in b["launches"].items():
+            launches[name] += n
+
+    def per_forward_ms(b, shapes):
+        """Kernel 2's times summed over one forward: n_layer launches a stage."""
+        return {key: cfg.n_layer * sum(rows[f"attention_b{b}_t{t}_d{d}"][key] for t, d in shapes)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_ms")}
+
     # one batch-1 forward: one BEV launch, 8 attention launches per stage shape
     per_forward = [rows[f"attention_b1_t{t}_d{d}"] for t, d in STAGE_SHAPES]
-    attn_total = {key: cfg.n_layer * sum(r[key] for r in per_forward)
-                  for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_ms")}
+    attn_total = per_forward_ms(1, STAGE_SHAPES)
     bev = rows["bev_serving"]
     kernels = [
         {"name": "bev_hist", "route": "cuda", "source": "mmfn_tpu_torch/csrc/bev_hist.cu",
@@ -792,11 +1029,17 @@ def main() -> int:
          "bound_by": max(per_forward, key=lambda r: r["bound_ms"])["bound_by"],
          "library_ms": attn_total["library_ms"]},
     ]
-    b8_forward = cfg.n_layer * sum(rows[f"attention_b8_t{t}_d{d}"]["ms"] for t, d in STAGE_SHAPES)
+    b8_forward = per_forward_ms(8, STAGE_SHAPES)["ms"]
     emit("summary", per_batch1_forward=True, **serving,
          device_ops_per_forward=prof["batch1"]["device_ops_per_call"],
          attention_ms_per_forward={"batch1": attn_total["ms"], "batch8": b8_forward},
-         attention_bound_f32_ms_per_forward=attn_total["bound_f32_ms"])
+         attention_bound_f32_ms_per_forward=attn_total["bound_f32_ms"],
+         launches_mmfn_and_baselines=launches)
+    emit("baseline_summary", gpu=gpu,
+         tick_ms_median={k: b["tick_ms_median"] for k, b in baselines.items()},
+         device_ops_per_forward={k: b["device_ops_per_forward"] for k, b in baselines.items()},
+         transfuser_attention_per_forward=per_forward_ms(1, TRANSFUSER_SHAPES),
+         transfuser_bev_ms=rows["bev_transfuser"]["ms"])
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

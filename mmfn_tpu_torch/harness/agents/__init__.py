@@ -1,3 +1,5 @@
-"""Serving pipelines."""
+"""Serving pipelines and closed-loop agents."""
 
+from mmfn_tpu_torch.harness.agents.base import AutonomousAgent, Track, VehicleControl  # noqa: F401
+from mmfn_tpu_torch.harness.agents.baseline import BaselineAgent  # noqa: F401
 from mmfn_tpu_torch.harness.agents.pipeline import TorchPipeline  # noqa: F401

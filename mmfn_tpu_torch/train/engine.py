@@ -2,7 +2,8 @@
 
 As the reference Engine (run_steps/phase2_train_net.py:35-220): AdamW (lr
 1e-4, weight decay on all parameters), the mean-L1 loss over the predicted
-waypoints, validation every few epochs, best-model tracking, and a
+waypoints (CILRS: its composite control loss, :func:`model_loss`),
+validation every few epochs, best-model tracking, and a
 ``recent.log`` JSON with the epoch/iter/bestval/loss histories for resume.
 
 State. A :class:`TrainState` holds the model, its optimizer and the integer
@@ -81,14 +82,23 @@ def waypoint_l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def cilrs_loss(out, batch: Batch) -> torch.Tensor:
     """CILRS composite loss in f32 (benchmarks/cilrs/train.py:93-96):
-    0.05·L1(velocity) + L1(steer) + L1(throttle) + L1(brake). No train step
-    uses it yet: the CILRS model is not ported (ROADMAP item 7)."""
+    0.05·L1(velocity) + L1(steer) + L1(throttle) + L1(brake). The train and
+    eval steps use it for a model whose ``variant`` is ``"cilrs"``."""
     steer, throttle, brake, velocity_pred = (t.to(torch.float32) for t in out)
     action = batch.action.to(torch.float32)
     return (0.05 * (velocity_pred.squeeze(-1) - batch.velocity).abs().mean()
             + (steer - action[:, 0]).abs().mean()
             + (throttle - action[:, 1]).abs().mean()
             + (brake - action[:, 2]).abs().mean())
+
+
+def model_loss(model: nn.Module, batch: Batch) -> torch.Tensor:
+    """The forward and its loss: CILRS takes the navigational command as an
+    integer tensor and trains on :func:`cilrs_loss`; every other model maps
+    the batch to waypoints and trains on :func:`waypoint_l1_loss`."""
+    if getattr(model, "variant", "") == "cilrs":
+        return cilrs_loss(model(batch, batch.command.to(torch.int32)), batch)
+    return waypoint_l1_loss(model(batch), batch.waypoints)
 
 
 def compute_dtype_of(name: str) -> torch.dtype:
@@ -129,7 +139,7 @@ def make_train_step(compute_dtype: str = "float32") -> Callable:
                                    device_type=device.type):
             torch.manual_seed(step_seed(seed, state.step))
             with torch.autocast(device.type, dtype=dtype, enabled=half):
-                loss = waypoint_l1_loss(model(batch), batch.waypoints)
+                loss = model_loss(model, batch)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
         optimizer.step()
@@ -148,7 +158,7 @@ def make_eval_step() -> Callable:
     def eval_step(state: TrainState, batch: Batch) -> torch.Tensor:
         state.model.eval()
         with torch.inference_mode():
-            return waypoint_l1_loss(state.model(batch), batch.waypoints)
+            return model_loss(state.model, batch)
 
     return eval_step
 

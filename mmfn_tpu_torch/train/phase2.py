@@ -1,8 +1,9 @@
-"""phase2: train an MMFN variant on phase-1 pickles with mmfn_tpu_torch.
+"""phase2: train an MMFN variant or a baseline on phase-1 pickles with mmfn_tpu_torch.
 
 The port of ``run_steps/phase2_train_net.py``: the same config file and keys,
 the same ``pro_train_f<name>`` / ``pro_eval_f<name>`` pools beside
-``data_folder``, AdamW lr 1e-4, the mean-L1 waypoint loss, validation every
+``data_folder``, AdamW lr 1e-4, the mean-L1 waypoint loss (CILRS: its
+control loss on the ``command`` and ``action`` labels), validation every
 ``val_every`` epochs, best-model checkpoints and a ``recent.log`` that a
 rerun resumes from. ``seed`` seeds the initial weights, the data order
 (``epoch + seed * 10007``) and the dropout masks. ``device_data_cache``
@@ -16,7 +17,8 @@ ported yet and raise.
 
 Usage:
     python -m mmfn_tpu_torch.train.phase2 --config run_steps/config/train.yaml \\
-        [train_agent.entry_point=mmfn_rad batch_size=24 epochs=101 device=cpu ...]
+        [train_agent.entry_point=mmfn_rad|aim|cilrs|transfuser batch_size=24 \\
+         epochs=101 device=cpu ...]
 """
 
 from __future__ import annotations

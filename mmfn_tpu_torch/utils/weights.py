@@ -2,14 +2,15 @@
 JAX package.
 
 The port's parameter names are the reference checkpoint's keys, so a
-reference ``best_model.pth`` loads with ``load_state_dict``. The vec and rad
-variants never run the map ResNet's stem and layer1, so the port does not
-build them; :func:`load_reference_state_dict` drops those keys, which torch
-saved anyway.
+reference ``best_model.pth`` (MMFN, AIM, CILRS or TransFuser) loads with
+``load_state_dict``. The vec and rad variants never run the map ResNet's
+stem and layer1, so the port does not build them;
+:func:`load_reference_state_dict` drops those keys, which torch saved anyway.
 
 :func:`from_flax_variables` is the inverse of the JAX package's
-``convert_mmfn``: it takes a ``{"params", "batch_stats"}`` tree of numpy
-arrays and returns the port's state_dict. Layout rules:
+``convert_mmfn``, ``convert_aim``, ``convert_cilrs`` and
+``convert_transfuser``: it takes a ``{"params", "batch_stats"}`` tree of
+numpy arrays and returns the port's state_dict. Layout rules:
 
 - flax Conv kernel (kh, kw, I, O) -> torch Conv2d weight (O, I, kh, kw)
 - flax Dense kernel (in, out)     -> torch Linear weight (out, in)
@@ -47,9 +48,9 @@ def load_torch_state_dict(path: str) -> StateDict:
 
 
 def load_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
-    """Load a reference MMFN state_dict into the port's ``model``, strictly,
-    after stripping a DDP prefix and dropping the map stem/layer1 keys that
-    a vec or rad model does not own."""
+    """Load a reference MMFN or baseline state_dict into the port's
+    ``model``, strictly, after stripping a DDP prefix and dropping the map
+    stem/layer1 keys that a vec or rad model does not own."""
     sd = strip_ddp_prefix(dict(sd))
     own = model.state_dict()
     sd = {k: v for k, v in sd.items() if k in own or not k.startswith(_MAP_STEM)}
@@ -165,10 +166,59 @@ def gru_from_flax(params: Tree, prefix: str = "") -> StateDict:
     return sd
 
 
+def _head_from_flax(sd: StateDict, params: Tree) -> None:
+    """The join MLP, the GRU cell and its output layer (MMFN, AIM, TransFuser)."""
+    for idx, torch_idx in ((1, 0), (2, 2), (3, 4)):
+        _dense(sd, f"join.{torch_idx}", params, f"join_fc{idx}")
+    sd.update(gru_from_flax(params["decoder"]["decoder"], "decoder."))
+    _dense(sd, "output", params, "decoder/output")
+
+
+def _aim_from_flax(params: Tree, stats: Tree) -> StateDict:
+    sd = resnet_from_flax(params["image_encoder"], stats["image_encoder"], RESNET34,
+                          "image_encoder.features.")
+    _head_from_flax(sd, params)
+    return sd
+
+
+def _cilrs_from_flax(params: Tree, stats: Tree) -> StateDict:
+    sd = resnet_from_flax(params["image_encoder"], stats["image_encoder"], RESNET18,
+                          "encoder.features.")
+    for key, path in (("vel_in.0", "vel_in_fc1"), ("vel_in.2", "vel_in_fc2"),
+                      ("vel_out.0", "vel_out_fc1"), ("vel_out.2", "vel_out_fc2"),
+                      ("vel_out.4", "vel_out_fc3")):
+        _dense(sd, f"controller.{key}", params, path)
+    for i in range(sum(k.startswith("branch_") and k.endswith("_fc1") for k in params)):
+        for j, torch_idx in ((1, 0), (2, 2), (3, 4)):
+            _dense(sd, f"controller.branches.{i}.{torch_idx}", params, f"branch_{i}_fc{j}")
+    return sd
+
+
+def _transfuser_from_flax(params: Tree, stats: Tree, n_layer: int) -> StateDict:
+    sd: StateDict = {}
+    for name, sizes, key in (("image_encoder", RESNET34, "image_encoder.features."),
+                             ("lidar_encoder", RESNET18, "lidar_encoder._model.")):
+        sd.update(resnet_from_flax(params[name], stats[name], sizes, f"encoder.{key}"))
+    for k in range(1, 5):
+        sd.update(fusion_transformer_from_flax(params[f"transformer{k}"], n_layer,
+                                               f"encoder.transformer{k}."))
+    _head_from_flax(sd, params)
+    return sd
+
+
 def from_flax_variables(variables: Tree, variant: str, n_layer: int = 8) -> StateDict:
-    """The JAX package's MMFN ``{"params", "batch_stats"}`` tree (numpy
-    leaves) -> the port's MMFN state_dict (CPU tensors)."""
+    """A JAX ``{"params", "batch_stats"}`` tree (numpy leaves) -> the port's
+    state_dict (CPU tensors). ``variant``: an MMFN variant (``img``, ``vec``,
+    ``rad``; the inverse of ``convert_mmfn``) or a baseline (``aim``,
+    ``cilrs``, ``transfuser``; the inverse of ``convert_aim``,
+    ``convert_cilrs`` or ``convert_transfuser``)."""
     params, stats = variables["params"], variables["batch_stats"]
+    if variant == "aim":
+        return _aim_from_flax(params, stats)
+    if variant == "cilrs":
+        return _cilrs_from_flax(params, stats)
+    if variant == "transfuser":
+        return _transfuser_from_flax(params, stats, n_layer)
     enc, enc_stats = params["encoder"], stats["encoder"]
     sd: StateDict = {}
     for name, sizes, key, first in (
@@ -185,8 +235,5 @@ def from_flax_variables(variables: Tree, variant: str, n_layer: int = 8) -> Stat
         sd.update(vectornet_from_flax(enc["vectornet_encoder"], "encoder.vectornet_encoder."))
     if variant == "rad":
         sd.update(radar_gat_from_flax(enc["radar_encoder"], "encoder.radar_encoder."))
-    for idx, torch_idx in ((1, 0), (2, 2), (3, 4)):
-        _dense(sd, f"join.{torch_idx}", params, f"join_fc{idx}")
-    sd.update(gru_from_flax(params["decoder"]["decoder"], "decoder."))
-    _dense(sd, "output", params, "decoder/output")
+    _head_from_flax(sd, params)
     return sd

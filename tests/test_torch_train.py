@@ -387,8 +387,9 @@ def test_registry():
         registry.MODEL_REGISTRY.values())
     assert get_entry_point("mmfn_tpu_torch.models.mmfn:build_model") is build_model
     for name in ("aim", "cilrs", "transfuser"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-            get_entry_point(name)
+        model = get_entry_point(name)(CFG, torch.Generator().manual_seed(0), device="cpu")
+        assert model.variant == name and not model.training
+        assert all(p.device.type == "cpu" for p in model.parameters())
     with pytest.raises(KeyError, match="unknown model entry point"):
         get_entry_point("nonesuch")
 
@@ -412,11 +413,14 @@ def test_phase2_cli_trains_and_resumes(tmp_path):
         shutil.rmtree(logdir, ignore_errors=True)     # about 1.7 GB of checkpoints
 
 
-def _phase2_twice(logdir, tmp_path):
+def _phase2_twice(logdir, tmp_path, entry="mmfn_rad"):
+    """Two epochs of ``entry`` through the CLI from the device cache, then a
+    rerun that resumes and trains a third through the streaming loader; the
+    last ``model.pth`` loads into a fresh model."""
     args = ["--config", os.path.join(ROOT, "run_steps", "config", "train.yaml"),
             f"data_folder={tmp_path / 'mmfn'}", f"logdir={logdir}", "device=cpu",
             "batch_size=4", "max_lanes=8", "val_every=1", "save_every=1", "seed=3",
-            "train_agent.entry_point=mmfn_rad", "model.n_layer=1", "wandb_mode=disabled"]
+            f"train_agent.entry_point={entry}", "model.n_layer=1", "wandb_mode=disabled"]
     assert phase2.main(args + ["epochs=2", "device_data_cache=true"]) == 0
     log = json.loads((logdir / "recent.log").read_text())
     assert (log["epoch"], log["iter"], len(log["val_loss"])) == (2, 4, 2)
@@ -430,7 +434,7 @@ def _phase2_twice(logdir, tmp_path):
     assert (log2["epoch"], log2["iter"]) == (3, 6)
     assert log2["train_loss"][:2] == log["train_loss"]
     assert all(np.isfinite(log2["train_loss"]))
-    served = build_model(GlobalConfig(n_layer=1, max_lanes=8), "rad", device="cpu")
+    served = get_entry_point(entry)(GlobalConfig(n_layer=1, max_lanes=8), device="cpu")
     served.load_state_dict(torch.load(logdir / "model.pth", weights_only=True))
 
 
