@@ -46,7 +46,29 @@ Phases, in order; any failure exits non-zero before the last line:
      the BEV histogram with clusters of 8 and 16, interleaved, and as the
      wrapper picks it, also at TransFuser's 1 x 65,536 f32) beside its plain
      version, SDPA for attention, and its bounds on the H100;
-  8. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
+  8. the scored closed loop through the port's phase0 CLI
+     (``mmfn_tpu_torch.harness.phase0.main``, in process) on the cross town
+     (data/maps/fake_town_cross.xodr, its scenario triggers and traffic
+     lights, the birdview camera drawn without cv2), serving full-width
+     MMFN-rad (attn_impl "pallas", host_bev off, random weights from seed 0):
+     one agent on route 0 of data/routes/benchmark_cross.xml for 150 ticks,
+     synchronous and with ``agent.async_dispatch``, then ``repetitions=2
+     fleet=8`` (8 routes in one fleet) for 50 ticks, lockstep and
+     pipelined. The map tool (native/build/rough_map_node) is built first by
+     scripts/build_native.sh when missing; a failed build fails the run.
+     Launch counters set to 0 just before and read just after each run;
+     every route runs to the tick cap, with a forward on every tick after
+     the two warm-up ticks (148 a single agent; 48 batched forwards a fleet,
+     each steering all 8 agents); every forward tick of the single agent and
+     every batched forward of the fleet: 1 BEV and 32 attention launches;
+     every route record: a status, no agent crash and a finite driving
+     score; the first forward
+     tick's waypoints against the same tick under the plain attention on
+     the GPU and under the plain versions on the CPU. Printed: tick ms
+     (host clock around ``MMFNAgent.run_step``, median and p90), device ops,
+     busy ms and idle share per forward tick (profiled over 5 ticks), world
+     and birdview ms per vehicle-tick, fleet vehicle-ticks/s, the records;
+  9. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
      24 from 96 synthetic samples in the GPU data cache (``DeviceDataset``,
      no map column): f32 (3 warm-up steps, then 5 epochs of 4 steps, one host
      fetch each; finite losses; parameters and BN buffers f32 and moved; no
@@ -59,7 +81,7 @@ Phases, in order; any failure exits non-zero before the last line:
      the CPU (loss rtol 1e-4, parameters within 2.5 lr), and 2 steps + save +
      resume + 1 step against 3 uninterrupted steps (loss rtol 1e-4, the same
      iteration count and recent.log);
-  9. train each baseline 4 f32 steps at batch 24 from the same data cache
+  10. train each baseline 4 f32 steps at batch 24 from the same data cache
      (CILRS on its control loss; finite losses, every parameter moved, the
      last 3 steps timed), then validate TransFuser on 2 batches through the
      fused attention (32 launches a forward, within rtol 1e-4 of the plain
@@ -67,16 +89,19 @@ Phases, in order; any failure exits non-zero before the last line:
 
 Output: JSON lines per phase (the summary has the device ops per batch-1
 forward; ``baseline_summary`` the baselines' tick latency and device ops
-per forward; ``train_summary`` the training rates, peak memory, idle share
-and device ops per step), then a ``kernels`` line whose launches count both
-served paths, MMFN-rad's and the baselines', the GPU's name and
-power limit as nvidia-smi gives them, and last
+per forward; ``closed_loop_summary`` the closed loop's numbers;
+``train_summary`` the training rates, peak memory, idle share and device
+ops per step; ``timing`` the seconds of each phase), then a ``kernels`` line whose launches count the served
+paths, MMFN-rad's requests, the baselines' ticks and the closed loop's four
+phase0 runs, the GPU's name and power limit as nvidia-smi gives them, and
+last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 TF32 is off for matmuls and cuDNN convolutions throughout.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -115,6 +140,22 @@ def require(ok: bool, what: str) -> None:
     """A failed check ends the run (an ``assert`` would vanish under -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+class Laps:
+    """Host-clock seconds of each phase of the run, in order."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.last
+        self.last = now
+
+    def total(self) -> float:
+        return time.perf_counter() - self.start
 
 
 def gpu_name_and_power_limit() -> str:
@@ -396,7 +437,6 @@ def profile_calls(fn, reps: int):
     overlap; user annotations such as ``Optimizer.step``, which span other
     kernels, are left out), idle share and device ops, and the top 12 device
     ops."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -404,6 +444,13 @@ def profile_calls(fn, reps: int):
         for _ in range(reps):
             fn()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return device_summary(prof, wall_ms, reps)
+
+
+def device_summary(prof, wall_ms: float, reps: int):
+    """A finished profile's device numbers per call (see ``profile_calls``)."""
+    from torch.autograd import DeviceType
+
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / reps
@@ -479,8 +526,6 @@ def serve_baseline(name, cfg, dev, ops, rng, gpu):
     (launch counters set to 0 just before and read just after), its raw
     output against plain attention on the GPU and plain everything on the
     CPU, then tick latency and a profile."""
-    import copy
-
     from mmfn_tpu_torch.harness.agents import BaselineAgent
     from mmfn_tpu_torch.harness.route import RoadOption
     from mmfn_tpu_torch.models import build_baseline
@@ -564,6 +609,325 @@ def serve_baselines(cfg, dev, ops, rng, gpu):
         out[name] = serve_baseline(name, cfg, dev, ops, rng, gpu)
         torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# the scored closed loop, through the port's phase0 CLI
+# --------------------------------------------------------------------------- #
+
+CLOSED_LOOP_TICKS = 150           # one route, one agent; sync, then async
+FLEET, FLEET_TICKS = 8, 50        # 4 routes x 2 repetitions in one fleet
+PROFILED_TICKS = 5                # forward ticks profiled in each single-agent run
+PROFILE_FROM = 40                 # ... from this forward tick on
+MAP_TOOL = os.path.join("native", "build", "rough_map_node")
+ROUTES = os.path.join("data", "routes", "benchmark_cross.xml")
+CLI_ARGS = ["--config", os.path.join("run_steps", "config", "eval.yaml"),
+            "map=" + os.path.join("data", "maps", "fake_town_cross.xodr"),
+            "scenarios=" + os.path.join("data", "scenarios", "fake_towns_scenarios.json"),
+            "agent.type=e2e", "agent.variant=rad", "agent.attn_impl=pallas",
+            "agent.model_path=null", "resume=false", "max_wall_seconds=900"]
+
+
+def map_tool() -> None:
+    """Build the map tool with scripts/build_native.sh when it is missing
+    (the checkout has no native/build/); a failed build fails the run."""
+    built, t0 = not os.path.exists(MAP_TOOL), time.perf_counter()
+    if built:
+        out = subprocess.run(["bash", os.path.join("scripts", "build_native.sh")],
+                             capture_output=True, text=True, timeout=600)
+        require(out.returncode == 0,
+                f"scripts/build_native.sh failed:\n{(out.stdout + out.stderr)[-2000:]}")
+    require(os.access(MAP_TOOL, os.X_OK), f"an executable map tool at {MAP_TOOL}")
+    emit("map_tool", path=MAP_TOOL, built_here=built, seconds=time.perf_counter() - t0)
+
+
+class ClosedLoopProbe:
+    """Times and counts what one phase0 CLI run does, by wrapping methods of
+    the port's classes while the run lasts (``with probe:``): the host clock
+    around each ``MMFNAgent.run_step`` and the kernel launches of each tick
+    that dispatched a forward; the kernel launches of each
+    ``dispatch_fleet``; the ``MMFNAgent.finish_step`` calls that returned a
+    control; the world's ``sensor_frame`` and ``tick`` and the
+    birdview's ``produce``; the first dispatch's pipeline, inputs and
+    waypoints; ``FleetRunner.run``'s wall time; and a torch.profiler window
+    over ``PROFILED_TICKS`` forward ticks of a single agent, whose ticks are
+    left out of the latency figures."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.tick_ms, self.tick_launches, self.fleet_launches = [], [], []
+        self.frame_ms, self.step_ms, self.birdview_ms = [], [], []   # the world
+        self.dispatches = 0
+        self.steered = 0                  # finish_step calls that returned
+        self.fleet_seconds = 0.0
+        self.first = None                 # (pipeline, args, waypoints)
+        self.profile = None
+        self._window = None               # [profiler, ms, ticks] while profiling
+        self._saved = []
+
+    def launches(self):
+        return {name: k.launches for name, k in self.ops.KERNELS.items()}
+
+    def _since(self, before):
+        return {k: v - before[k] for k, v in self.launches().items()}
+
+    def _wrap(self, cls, name, make):
+        orig = getattr(cls, name)
+        self._saved.append((cls, name, orig))
+        setattr(cls, name, make(orig))
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        from mmfn_tpu_torch.harness.agents import MMFNAgent, TorchPipeline
+        from mmfn_tpu_torch.harness.fleet import FleetRunner
+        from mmfn_tpu_torch.harness.replay import KinematicWorld
+        from mmfn_tpu_torch.mapping.birdview import BirdViewProducer
+        probe = self
+
+        def run_step(orig):
+            def wrapped(agent, input_data, timestamp):
+                if (probe._window is None and probe.profile is None
+                        and len(probe.tick_launches) == PROFILE_FROM):
+                    probe._window = [profile(activities=[ProfilerActivity.CPU,
+                                                         ProfilerActivity.CUDA]), 0.0, 0]
+                    probe._window[0].__enter__()
+                before, dispatches = probe.launches(), probe.dispatches
+                t0 = time.perf_counter()
+                control = orig(agent, input_data, timestamp)
+                ms = (time.perf_counter() - t0) * 1e3
+                if probe.dispatches == dispatches:
+                    return control            # a warm-up tick
+                probe.tick_launches.append(probe._since(before))
+                if probe._window is None:
+                    probe.tick_ms.append(ms)
+                    return control
+                probe._window[1] += ms
+                probe._window[2] += 1
+                if probe._window[2] == PROFILED_TICKS:
+                    prof, wall_ms, n = probe._window
+                    torch.cuda.synchronize()
+                    prof.__exit__(None, None, None)
+                    probe.profile = device_summary(prof, wall_ms / n, n)
+                    probe._window = None
+                return control
+            return wrapped
+
+        def dispatch(orig):
+            def wrapped(pipe, *args):
+                out = orig(pipe, *args)
+                probe.dispatches += 1
+                if probe.first is None:
+                    probe.first = (pipe, args, out.cpu().numpy())
+                return out
+            return wrapped
+
+        def dispatch_fleet(orig):
+            def wrapped(pipe, payloads):
+                before = probe.launches()
+                out = orig(pipe, payloads)
+                probe.fleet_launches.append(probe._since(before))
+                return out
+            return wrapped
+
+        def finish_step(orig):
+            def wrapped(agent, payload, waypoints):
+                control = orig(agent, payload, waypoints)
+                probe.steered += 1
+                return control
+            return wrapped
+
+        def timed(store):
+            def make(orig):
+                def wrapped(*args, **kw):
+                    t0 = time.perf_counter()
+                    out = orig(*args, **kw)
+                    store.append((time.perf_counter() - t0) * 1e3)
+                    return out
+                return wrapped
+            return make
+
+        def fleet_run(orig):
+            def wrapped(runner, agents, routes):
+                t0 = time.perf_counter()
+                out = orig(runner, agents, routes)
+                probe.fleet_seconds += time.perf_counter() - t0
+                return out
+            return wrapped
+
+        self._wrap(MMFNAgent, "run_step", run_step)
+        self._wrap(MMFNAgent, "finish_step", finish_step)
+        self._wrap(TorchPipeline, "dispatch", dispatch)
+        self._wrap(TorchPipeline, "dispatch_fleet", dispatch_fleet)
+        self._wrap(KinematicWorld, "sensor_frame", timed(self.frame_ms))
+        self._wrap(KinematicWorld, "tick", timed(self.step_ms))
+        self._wrap(BirdViewProducer, "produce", timed(self.birdview_ms))
+        self._wrap(FleetRunner, "run", fleet_run)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in reversed(self._saved):
+            setattr(cls, name, orig)
+        self._saved = []
+        if self._window is not None:
+            self._window[0].__exit__(None, None, None)
+            self._window = None
+        return False
+
+    @property
+    def vehicle_ticks(self) -> int:
+        return len(self.step_ms)
+
+
+def run_phase0(phase0, ops, name, extra, tmp):
+    """One in-process run of the port's phase0 CLI under a probe, with the
+    launch counters set to 0 just before and read just after."""
+    checkpoint = os.path.join(tmp, f"{name}.json")
+    probe = ClosedLoopProbe(ops)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with probe:
+        require(phase0.main(CLI_ARGS + ["checkpoint=" + checkpoint] + extra) == 0,
+                f"phase0 {name} exits 0")
+    seconds = time.perf_counter() - t0
+    launches = probe.launches()
+    with open(checkpoint) as f:
+        records = json.load(f)["_checkpoint"]["records"]
+    for r in records:
+        require(bool(r.get("status")) and np.isfinite(r["scores"]["score_composed"]),
+                f"phase0 {name}: a status and a finite score_composed: {r}")
+        # the runner scores an agent's exception as a failed route: here it fails the run
+        require("Agent crashed" not in r["status"], f"phase0 {name}: {r['status']}")
+    world_ms = sum(probe.frame_ms) + sum(probe.step_ms)
+    return probe, {"run": name, "seconds": seconds, "launches": launches,
+                   "routes": len(records),
+                   "records": [[r["route_id"], r["status"], r["scores"]["score_composed"]]
+                               for r in records],
+                   "world_ms_per_tick": world_ms / max(1, probe.vehicle_ticks),
+                   "birdview_ms_per_tick": sum(probe.birdview_ms) / max(1, probe.vehicle_ticks),
+                   "vehicle_ticks": probe.vehicle_ticks}
+
+
+def first_route_file(tmp) -> str:
+    """Route 0 of data/routes/benchmark_cross.xml, alone in a routes file."""
+    import xml.etree.ElementTree as ET
+
+    tree = ET.parse(ROUTES)
+    root = tree.getroot()
+    for route in root.findall("route")[1:]:
+        root.remove(route)
+    path = os.path.join(tmp, "benchmark_cross_route0.xml")
+    tree.write(path)
+    return path
+
+
+def closed_loop(cfg, ops, gpu):
+    """The port's phase0 CLI over the cross town, full-width MMFN-rad
+    (GlobalConfig defaults, attn_impl "pallas", random weights from seed 0,
+    host_bev off): one agent on route 0 of data/routes/benchmark_cross.xml
+    for CLOSED_LOOP_TICKS ticks, sync and async_dispatch, then a fleet of 8
+    (the file's 4 routes, 2 repetitions) for FLEET_TICKS ticks, lockstep and
+    pipelined. Every record needs a status, no agent crash and a finite
+    score; every route runs to the tick cap with a forward on every tick after
+    the two warm-up ticks, and every fleet agent steers from each batched
+    forward; every forward tick of the single agent, and every batched
+    forward of the fleet, 1 BEV and 4 * n_layer attention launches; the first
+    forward tick's waypoints
+    must agree with the plain attention on the GPU and with the plain
+    versions on the CPU."""
+    from mmfn_tpu_torch.harness import phase0
+    from mmfn_tpu_torch.harness.agents import TorchPipeline
+    from mmfn_tpu_torch.models.gpt import SelfAttention
+
+    want = {"bev_hist": 1, "fused_attention": 4 * cfg.n_layer}
+    out, total = {}, {name: 0 for name in ops.KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        route0 = first_route_file(tmp)
+        for name, extra in (("sync", []), ("async", ["agent.async_dispatch=true"])):
+            probe, row = run_phase0(phase0, ops, name, [
+                "routes=" + route0, f"max_ticks={CLOSED_LOOP_TICKS}"] + extra, tmp)
+            # every tick after the two warm-up ticks drives a forward, up to the cap
+            require(probe.vehicle_ticks == CLOSED_LOOP_TICKS
+                    and len(probe.tick_launches) == CLOSED_LOOP_TICKS - 2,
+                    f"{name}: {probe.vehicle_ticks} world ticks, "
+                    f"{len(probe.tick_launches)} forward ticks")
+            bad = [n for n in probe.tick_launches if n != want]
+            require(not bad, f"{name}: every forward tick launches {want}; got {bad[:3]}")
+            lat = sorted(probe.tick_ms)
+            row.update(forward_ticks=len(probe.tick_launches),
+                       tick_ms_median=statistics.median(lat),
+                       tick_ms_p90=lat[int(0.9 * len(lat)) - 1],
+                       device_ops_per_forward=probe.profile[0]["device_ops_per_call"],
+                       device_busy_ms_per_forward=probe.profile[0]["device_busy_ms_per_call"],
+                       device_idle_share=probe.profile[0]["device_idle_share"],
+                       profiled_tick_ms=probe.profile[0]["wall_ms_per_call"])
+            if name == "sync":
+                pipe, args, waypoints = probe.first
+                attn = [m for m in pipe.model.modules() if isinstance(m, SelfAttention)]
+                for m in attn:
+                    m.attn_impl = "xla"
+                plain_gpu = pipe(*args)
+                for m in attn:
+                    m.attn_impl = "pallas"
+                cpu_pipe = TorchPipeline(copy.deepcopy(pipe.model).cpu(), pipe.config,
+                                         points_per_sweep=pipe.points_per_sweep,
+                                         host_bev=pipe.host_bev, device="cpu")
+                plain_cpu = cpu_pipe(*args)
+                probe.first = None            # the pipeline goes with the run
+                del cpu_pipe, pipe
+                row.update(first_waypoints=waypoints.tolist(),
+                           max_abs_vs_plain_gpu=float(np.abs(waypoints - plain_gpu).max()),
+                           max_abs_vs_cpu=float(np.abs(waypoints - plain_cpu).max()))
+                require(waypoints.shape == (4, 2) and bool(np.isfinite(waypoints).all()),
+                        f"first-tick waypoints {waypoints}")
+                np.testing.assert_allclose(waypoints, plain_gpu, **WAYPOINT_TOL)
+                np.testing.assert_allclose(waypoints, plain_cpu, **CPU_TOL)
+            emit("closed_loop", gpu=gpu, **row, top=probe.profile[1])
+            out[name] = row
+            for k, v in row["launches"].items():
+                total[k] += v
+            torch.cuda.empty_cache()
+        for name, extra in (("fleet_lockstep", []),
+                            ("fleet_pipelined", ["agent.async_dispatch=true"])):
+            probe, row = run_phase0(phase0, ops, name, [
+                "routes=" + ROUTES, "repetitions=2", f"fleet={FLEET}",
+                f"max_ticks={FLEET_TICKS}"] + extra, tmp)
+            require(row["routes"] == FLEET, f"{name}: {FLEET} routes in one fleet")
+            # all 8 routes live up to the cap: one batched forward a tick after
+            # the two warm-up ticks, and every agent steered from each of them
+            forwards = FLEET_TICKS - 2
+            require(probe.vehicle_ticks == FLEET * FLEET_TICKS
+                    and len(probe.fleet_launches) == forwards
+                    and probe.steered == FLEET * forwards,
+                    f"{name}: {probe.vehicle_ticks} world ticks, "
+                    f"{len(probe.fleet_launches)} batched forwards, {probe.steered} steered")
+            bad = [n for n in probe.fleet_launches if n != want]
+            require(not bad,
+                    f"{name}: every batched forward launches {want}; got {bad[:3]}")
+            row.update(batched_forwards=len(probe.fleet_launches),
+                       fleet_seconds=probe.fleet_seconds,
+                       vehicle_ticks_per_s=probe.vehicle_ticks / probe.fleet_seconds)
+            emit("closed_loop", gpu=gpu, **row)
+            out[name] = row
+            for k, v in row["launches"].items():
+                total[k] += v
+            torch.cuda.empty_cache()
+    summary = {
+        "gpu": gpu,
+        "tick_ms_median": {k: out[k]["tick_ms_median"] for k in ("sync", "async")},
+        "tick_ms_p90": {k: out[k]["tick_ms_p90"] for k in ("sync", "async")},
+        "device_ops_per_forward": {k: out[k]["device_ops_per_forward"] for k in ("sync", "async")},
+        "device_busy_ms_per_forward": {k: out[k]["device_busy_ms_per_forward"]
+                                       for k in ("sync", "async")},
+        "device_idle_share": {k: out[k]["device_idle_share"] for k in ("sync", "async")},
+        "world_ms_per_tick": {k: r["world_ms_per_tick"] for k, r in out.items()},
+        "birdview_ms_per_tick": {k: r["birdview_ms_per_tick"] for k, r in out.items()},
+        "fleet_vehicle_ticks_per_s": {k: out[k]["vehicle_ticks_per_s"]
+                                      for k in ("fleet_lockstep", "fleet_pipelined")},
+        "records": {k: r["records"] for k, r in out.items()},
+        "launches": total}
+    emit("closed_loop_summary", **summary)
+    return summary
 
 
 # --------------------------------------------------------------------------- #
@@ -974,6 +1338,7 @@ def main() -> int:
     from mmfn_tpu_torch.config import GlobalConfig
     from mmfn_tpu_torch.ops import _cuda, attention, lidar
 
+    laps = Laps()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -991,22 +1356,36 @@ def main() -> int:
                                    if "registers" in line or "spill" in line]}
                   for name, r in report.items()})
 
+    laps("build")
+
     rng = np.random.default_rng(SEED)
     bev_err = check_bev(lidar, rng, dev)
     attn_err = check_attention(attention, dev)
+    laps("kernel_checks")
     cfg = GlobalConfig(attn_impl="pallas")
     pipe, payloads, launches = serve(cfg, dev, ops, rng)
     serving = time_serving(pipe, payloads)
     prof = profile_serving(pipe, payloads)
     del pipe
+    laps("serve")
     baselines = serve_baselines(cfg, dev, ops, rng, gpu)
+    laps("baselines")
     rows = time_kernels(lidar, attention, dev, rng)
+    laps("kernel_times")
+    map_tool()
+    laps("map_tool")
+    loop = closed_loop(cfg, ops, gpu)
+    laps("closed_loop")
     run_training(cfg, dev, ops)
+    laps("training")
 
-    # the launches of both served paths: MMFN-rad's requests and the baselines' ticks
+    # the launches of the served paths: MMFN-rad's requests, the baselines'
+    # ticks and the closed loop's four phase0 runs
     for b in baselines.values():
         for name, n in b["launches"].items():
             launches[name] += n
+    for name, n in loop["launches"].items():
+        launches[name] += n
 
     def per_forward_ms(b, shapes):
         """Kernel 2's times summed over one forward: n_layer launches a stage."""
@@ -1034,12 +1413,13 @@ def main() -> int:
          device_ops_per_forward=prof["batch1"]["device_ops_per_call"],
          attention_ms_per_forward={"batch1": attn_total["ms"], "batch8": b8_forward},
          attention_bound_f32_ms_per_forward=attn_total["bound_f32_ms"],
-         launches_mmfn_and_baselines=launches)
+         launches_served_paths=launches)
     emit("baseline_summary", gpu=gpu,
          tick_ms_median={k: b["tick_ms_median"] for k, b in baselines.items()},
          device_ops_per_forward={k: b["device_ops_per_forward"] for k, b in baselines.items()},
          transfuser_attention_per_forward=per_forward_ms(1, TRANSFUSER_SHAPES),
          transfuser_bev_ms=rows["bev_transfuser"]["ms"])
+    emit("timing", gpu=gpu, seconds=laps.seconds, total_seconds=laps.total())
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,7 @@ that the JAX package's phase1 writes (one dict per ``.pkl``, the payload of
 ``CarlaDataset.__getitem__``), and hands them to ``collate.collate_samples``.
 
 Decoding raw CARLA routes (``CarlaDataset``) and the phase-1 preprocessing
-are not ported yet (ROADMAP).
+are not ported yet (ROADMAP queue 1 item 2, with the phase1 CLI).
 """
 
 from __future__ import annotations

@@ -14,6 +14,10 @@ copy; on the device each input is a byte view of its own contiguous,
 16-byte-aligned range, so ``Tensor.view(dtype)`` applies. A CUDA event
 recorded after the copy guards the reused pinned buffer: the next call waits
 for it before writing.
+
+``HostCopy`` fetches a dispatch without blocking the caller: the async agent
+and the pipelined fleet steer from the previous tick's waypoints while this
+tick's forward runs.
 """
 
 from __future__ import annotations
@@ -35,6 +39,35 @@ MAX_SWEEP_POINTS = 32768  # one 64-ch sweep at 600k pts/s / 20 Hz, padded
 _ALIGN = 16
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float16): torch.float16,
                  np.dtype(np.float32): torch.float32, np.dtype(np.int32): torch.int32}
+
+
+class HostCopy:
+    """A dispatch's output on its way to the host.
+
+    On the GPU the device-to-host copy is enqueued at once, ``non_blocking``,
+    into fresh pinned memory, on the dispatching thread's current stream right
+    behind the forward that writes the output; a CUDA event recorded after it
+    marks the copy done. ``result()`` waits on that event, so the array it
+    returns holds the dispatch's finished work, and the copy never queues
+    behind a later forward. A CPU output is already on the host.
+    (``np.asarray`` of a CUDA tensor raises, so callers fetch through this.)
+    """
+
+    def __init__(self, out: torch.Tensor):
+        self._done = None
+        if out.device.type == "cuda":
+            with torch.inference_mode():
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
+            out = host
+        self._host = out
+
+    def result(self) -> np.ndarray:
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host.numpy()
 
 
 class TorchPipeline:

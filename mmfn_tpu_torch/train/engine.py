@@ -172,7 +172,7 @@ class Engine:
         if config.checkpoint_backend == "orbax":
             raise NotImplementedError("checkpoint_backend='orbax' (sharded async "
                                       "checkpoints across processes) is not ported to "
-                                      "mmfn_tpu_torch yet (ROADMAP item 6)")
+                                      "mmfn_tpu_torch yet (ROADMAP queue 1 item 4, multi-process)")
         if config.checkpoint_backend != "msgpack":
             raise ValueError(f"unknown checkpoint_backend {config.checkpoint_backend!r}")
         self.model = model

@@ -45,14 +45,14 @@ DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 def _refuse_unported(cfg) -> None:
     if cfg.get("multi_host"):
         raise NotImplementedError("multi_host: multi-process training is not ported to "
-                                  "mmfn_tpu_torch yet (ROADMAP item 6)")
+                                  "mmfn_tpu_torch yet (ROADMAP queue 1 item 4, multi-process)")
     if int(cfg.get("model_parallel", 1)) > 1:
         raise NotImplementedError("model_parallel > 1: tensor parallelism is not ported "
-                                  "to mmfn_tpu_torch yet (ROADMAP item 6)")
+                                  "to mmfn_tpu_torch yet (ROADMAP queue 1 item 4, multi-process)")
     if cfg.get("pretrained_resnet34") or cfg.get("pretrained_resnet18"):
         raise NotImplementedError("pretrained_resnet34/18: grafting torchvision ImageNet "
                                   "weights is not ported yet; it needs torchvision files "
-                                  "that are not in the repo (ROADMAP item 5)")
+                                  "that are not in the repo (ROADMAP queue 1 item 5, the tail)")
 
 
 def main(argv=None) -> int:

@@ -169,7 +169,7 @@ def test_fit_validates_saves_and_logs(tmp_path):
 
 
 def test_engine_refuses_orbax(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
         Engine(TinyNet(), CFG.replace(checkpoint_backend="orbax"), str(tmp_path))
 
 
@@ -439,7 +439,7 @@ def _phase2_twice(logdir, tmp_path, entry="mmfn_rad"):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("multi_host=true", "ROADMAP item 6"), ("model_parallel=2", "ROADMAP item 6"),
+    ("multi_host=true", "ROADMAP queue 1 item 4"), ("model_parallel=2", "ROADMAP queue 1 item 4"),
     ("pretrained_resnet34=/nonexistent.pth", "torchvision")])
 def test_phase2_refuses_what_is_not_ported(override, match):
     with pytest.raises(NotImplementedError, match=match):
