@@ -68,7 +68,31 @@ Phases, in order; any failure exits non-zero before the last line:
      (host clock around ``MMFNAgent.run_step``, median and p90), device ops,
      busy ms and idle share per forward tick (profiled over 5 ticks), world
      and birdview ms per vehicle-tick, fleet vehicle-ticks/s, the records;
-  9. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
+  9. the device world (``harness/device_world.py``) on the cross town, with
+     random weights from seed 0: 128 compact payloads (poses along the four
+     routes, actors and traffic lights around each). Kernel 1 on the
+     synthesized 128 x 3,340 f32 clouds == its plain version exactly, with
+     clusters of 8 and 16, and timed; kernel 2 at B = 128 (T in {192, 256},
+     every D, both layouts) within rtol/atol 1e-5, and timed. Full-width
+     MMFN-rad through ``DeviceWorldPipeline`` at width 128 and full-width
+     MMFN-img (the birdview raster drawn on the card) at width 8: one
+     batched forward with the counters set to 0 just before and read just
+     after, 1 BEV and 32 attention launches; finite (N, 4, 2) waypoints,
+     within rtol 1e-4 / atol 2e-3 of the plain attention and plain BEV on
+     the card; the first 4 (img: 2) vehicles through a CPU pipeline of the
+     same weights: every synthesized sensor equal (the BEV and lane counts
+     exactly, the rest within 1e-5), waypoints within rtol 1e-3 / atol
+     1e-2; chunked synthesis (32 vehicles) equal to monolithic; the fleet's
+     zero payloads finite; a profile (device busy, ops, idle share, the
+     synthesis' share of busy) and the peak memory. Then phase 8 again with
+     ``agent.device_world=true`` (compact world frames; one warm-up tick;
+     100 and 40 ticks),
+     and 128 ``MMFNAgent(device_world=True)`` on one pipeline in
+     ``FleetRunner`` on a straight road, pipelined and lockstep, 4 warm-up
+     and 20 timed ticks: every route to its cap, one batched forward of 1
+     BEV and 32 attention launches a tick steering all 128, no crash;
+     vehicle-ticks/s, world and agent host ms per fleet tick;
+  10. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
      24 from 96 synthetic samples in the GPU data cache (``DeviceDataset``,
      no map column): f32 (3 warm-up steps, then 5 epochs of 4 steps, one host
      fetch each; finite losses; parameters and BN buffers f32 and moved; no
@@ -81,7 +105,7 @@ Phases, in order; any failure exits non-zero before the last line:
      the CPU (loss rtol 1e-4, parameters within 2.5 lr), and 2 steps + save +
      resume + 1 step against 3 uninterrupted steps (loss rtol 1e-4, the same
      iteration count and recent.log);
-  10. train each baseline 4 f32 steps at batch 24 from the same data cache
+  11. train each baseline 4 f32 steps at batch 24 from the same data cache
      (CILRS on its control loss; finite losses, every parameter moved, the
      last 3 steps timed), then validate TransFuser on 2 batches through the
      fused attention (32 launches a forward, within rtol 1e-4 of the plain
@@ -89,11 +113,13 @@ Phases, in order; any failure exits non-zero before the last line:
 
 Output: JSON lines per phase (the summary has the device ops per batch-1
 forward; ``baseline_summary`` the baselines' tick latency and device ops
-per forward; ``closed_loop_summary`` the closed loop's numbers;
+per forward; ``closed_loop_summary`` the closed loop's numbers, host world and device
+world; ``device_world_summary`` the device world's;
 ``train_summary`` the training rates, peak memory, idle share and device
 ops per step; ``timing`` the seconds of each phase), then a ``kernels`` line whose launches count the served
-paths, MMFN-rad's requests, the baselines' ticks and the closed loop's four
-phase0 runs, the GPU's name and power limit as nvidia-smi gives them, and
+paths, MMFN-rad's requests, the baselines' ticks, the closed loop's four
+phase0 runs and the device world's forwards, phase0 runs and fleets, the
+GPU's name and power limit as nvidia-smi gives them, and
 last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 TF32 is off for matmuls and cuDNN convolutions throughout.
@@ -617,6 +643,7 @@ def serve_baselines(cfg, dev, ops, rng, gpu):
 
 CLOSED_LOOP_TICKS = 150           # one route, one agent; sync, then async
 FLEET, FLEET_TICKS = 8, 50        # 4 routes x 2 repetitions in one fleet
+DW_CLOSED_LOOP_TICKS, DW_FLEET_TICKS = 100, 40   # the same with the device world
 PROFILED_TICKS = 5                # forward ticks profiled in each single-agent run
 PROFILE_FROM = 40                 # ... from this forward tick on
 MAP_TOOL = os.path.join("native", "build", "rough_map_node")
@@ -642,20 +669,24 @@ def map_tool() -> None:
 
 
 class ClosedLoopProbe:
-    """Times and counts what one phase0 CLI run does, by wrapping methods of
-    the port's classes while the run lasts (``with probe:``): the host clock
-    around each ``MMFNAgent.run_step`` and the kernel launches of each tick
-    that dispatched a forward; the kernel launches of each
-    ``dispatch_fleet``; the ``MMFNAgent.finish_step`` calls that returned a
-    control; the world's ``sensor_frame`` and ``tick`` and the
-    birdview's ``produce``; the first dispatch's pipeline, inputs and
-    waypoints; ``FleetRunner.run``'s wall time; and a torch.profiler window
-    over ``PROFILED_TICKS`` forward ticks of a single agent, whose ticks are
-    left out of the latency figures."""
+    """Times and counts what one phase0 CLI or ``FleetRunner`` run does, by
+    wrapping methods of the port's classes while the run lasts (``with
+    probe:``): the host clock around each ``MMFNAgent.run_step`` and the
+    kernel launches of each tick that dispatched a forward; the host clock
+    at each ``dispatch_fleet`` and its kernel launches; ``prepare_step`` and
+    the ``finish_step`` calls that returned a control; the world's
+    ``sensor_frame`` and ``tick`` and the birdview's ``produce``; the first
+    dispatch's pipeline, inputs and waypoints; ``FleetRunner.run``'s wall
+    time; and a torch.profiler window over ``PROFILED_TICKS`` forward ticks
+    of a single agent, whose ticks are left out of the latency figures. The
+    pipeline is ``pipeline_cls`` (``TorchPipeline`` when None)."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, pipeline_cls=None):
         self.ops = ops
+        self.pipeline_cls = pipeline_cls      # TorchPipeline when None
         self.tick_ms, self.tick_launches, self.fleet_launches = [], [], []
+        self.fleet_t = []                 # host clock at each dispatch_fleet
+        self.prep_ms, self.finish_ms = [], []   # MMFNAgent.prepare_step / finish_step
         self.frame_ms, self.step_ms, self.birdview_ms = [], [], []   # the world
         self.dispatches = 0
         self.steered = 0                  # finish_step calls that returned
@@ -724,6 +755,7 @@ class ClosedLoopProbe:
 
         def dispatch_fleet(orig):
             def wrapped(pipe, payloads):
+                probe.fleet_t.append(time.perf_counter())
                 before = probe.launches()
                 out = orig(pipe, payloads)
                 probe.fleet_launches.append(probe._since(before))
@@ -732,7 +764,9 @@ class ClosedLoopProbe:
 
         def finish_step(orig):
             def wrapped(agent, payload, waypoints):
+                t0 = time.perf_counter()
                 control = orig(agent, payload, waypoints)
+                probe.finish_ms.append((time.perf_counter() - t0) * 1e3)
                 probe.steered += 1
                 return control
             return wrapped
@@ -755,10 +789,12 @@ class ClosedLoopProbe:
                 return out
             return wrapped
 
+        pipeline_cls = self.pipeline_cls or TorchPipeline
         self._wrap(MMFNAgent, "run_step", run_step)
+        self._wrap(MMFNAgent, "prepare_step", timed(self.prep_ms))
         self._wrap(MMFNAgent, "finish_step", finish_step)
-        self._wrap(TorchPipeline, "dispatch", dispatch)
-        self._wrap(TorchPipeline, "dispatch_fleet", dispatch_fleet)
+        self._wrap(pipeline_cls, "dispatch", dispatch)
+        self._wrap(pipeline_cls, "dispatch_fleet", dispatch_fleet)
         self._wrap(KinematicWorld, "sensor_frame", timed(self.frame_ms))
         self._wrap(KinematicWorld, "tick", timed(self.step_ms))
         self._wrap(BirdViewProducer, "produce", timed(self.birdview_ms))
@@ -779,11 +815,11 @@ class ClosedLoopProbe:
         return len(self.step_ms)
 
 
-def run_phase0(phase0, ops, name, extra, tmp):
+def run_phase0(phase0, ops, name, extra, tmp, pipeline_cls=None):
     """One in-process run of the port's phase0 CLI under a probe, with the
     launch counters set to 0 just before and read just after."""
     checkpoint = os.path.join(tmp, f"{name}.json")
-    probe = ClosedLoopProbe(ops)
+    probe = ClosedLoopProbe(ops, pipeline_cls)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with probe:
@@ -821,34 +857,43 @@ def first_route_file(tmp) -> str:
     return path
 
 
-def closed_loop(cfg, ops, gpu):
+def closed_loop(cfg, ops, gpu, device_world=False):
     """The port's phase0 CLI over the cross town, full-width MMFN-rad
     (GlobalConfig defaults, attn_impl "pallas", random weights from seed 0,
     host_bev off): one agent on route 0 of data/routes/benchmark_cross.xml
     for CLOSED_LOOP_TICKS ticks, sync and async_dispatch, then a fleet of 8
     (the file's 4 routes, 2 repetitions) for FLEET_TICKS ticks, lockstep and
-    pipelined. Every record needs a status, no agent crash and a finite
+    pipelined (DW_CLOSED_LOOP_TICKS and DW_FLEET_TICKS with the device
+    world). Every record needs a status, no agent crash and a finite
     score; every route runs to the tick cap with a forward on every tick after
-    the two warm-up ticks, and every fleet agent steers from each batched
+    the warm-up ticks, and every fleet agent steers from each batched
     forward; every forward tick of the single agent, and every batched
-    forward of the fleet, 1 BEV and 4 * n_layer attention launches; the first
-    forward tick's waypoints
+    forward of the fleet, 1 BEV and 4 * n_layer attention launches. With
+    ``device_world`` the agents serve through ``DeviceWorldPipeline`` in
+    compact world frames (``agent.device_world=true``; one warm-up tick, the
+    map bootstrap); without it the host world ticks (two warm-up ticks, the
+    second filling the sweep buffer), and the first forward tick's waypoints
     must agree with the plain attention on the GPU and with the plain
     versions on the CPU."""
     from mmfn_tpu_torch.harness import phase0
     from mmfn_tpu_torch.harness.agents import TorchPipeline
+    from mmfn_tpu_torch.harness.device_world import DeviceWorldPipeline
     from mmfn_tpu_torch.models.gpt import SelfAttention
 
     want = {"bev_hist": 1, "fused_attention": 4 * cfg.n_layer}
     out, total = {}, {name: 0 for name in ops.KERNELS}
+    world = ["agent.device_world=true"] if device_world else []
+    pipeline_cls = DeviceWorldPipeline if device_world else TorchPipeline
+    warmup = 1 if device_world else 2
+    cap, fleet_cap = ((DW_CLOSED_LOOP_TICKS, DW_FLEET_TICKS) if device_world
+                      else (CLOSED_LOOP_TICKS, FLEET_TICKS))
     with tempfile.TemporaryDirectory() as tmp:
         route0 = first_route_file(tmp)
         for name, extra in (("sync", []), ("async", ["agent.async_dispatch=true"])):
             probe, row = run_phase0(phase0, ops, name, [
-                "routes=" + route0, f"max_ticks={CLOSED_LOOP_TICKS}"] + extra, tmp)
-            # every tick after the two warm-up ticks drives a forward, up to the cap
-            require(probe.vehicle_ticks == CLOSED_LOOP_TICKS
-                    and len(probe.tick_launches) == CLOSED_LOOP_TICKS - 2,
+                "routes=" + route0, f"max_ticks={cap}"] + world + extra, tmp, pipeline_cls)
+            # every tick after the warm-up ticks drives a forward, up to the cap
+            require(probe.vehicle_ticks == cap and len(probe.tick_launches) == cap - warmup,
                     f"{name}: {probe.vehicle_ticks} world ticks, "
                     f"{len(probe.tick_launches)} forward ticks")
             bad = [n for n in probe.tick_launches if n != want]
@@ -861,7 +906,7 @@ def closed_loop(cfg, ops, gpu):
                        device_busy_ms_per_forward=probe.profile[0]["device_busy_ms_per_call"],
                        device_idle_share=probe.profile[0]["device_idle_share"],
                        profiled_tick_ms=probe.profile[0]["wall_ms_per_call"])
-            if name == "sync":
+            if name == "sync" and not device_world:
                 pipe, args, waypoints = probe.first
                 attn = [m for m in pipe.model.modules() if isinstance(m, SelfAttention)]
                 for m in attn:
@@ -873,7 +918,6 @@ def closed_loop(cfg, ops, gpu):
                                          points_per_sweep=pipe.points_per_sweep,
                                          host_bev=pipe.host_bev, device="cpu")
                 plain_cpu = cpu_pipe(*args)
-                probe.first = None            # the pipeline goes with the run
                 del cpu_pipe, pipe
                 row.update(first_waypoints=waypoints.tolist(),
                            max_abs_vs_plain_gpu=float(np.abs(waypoints - plain_gpu).max()),
@@ -882,7 +926,9 @@ def closed_loop(cfg, ops, gpu):
                         f"first-tick waypoints {waypoints}")
                 np.testing.assert_allclose(waypoints, plain_gpu, **WAYPOINT_TOL)
                 np.testing.assert_allclose(waypoints, plain_cpu, **CPU_TOL)
-            emit("closed_loop", gpu=gpu, **row, top=probe.profile[1])
+            probe.first = None                # the pipeline goes with the run
+            emit("closed_loop", gpu=gpu, device_world=device_world, **row,
+                 top=probe.profile[1])
             out[name] = row
             for k, v in row["launches"].items():
                 total[k] += v
@@ -891,12 +937,12 @@ def closed_loop(cfg, ops, gpu):
                             ("fleet_pipelined", ["agent.async_dispatch=true"])):
             probe, row = run_phase0(phase0, ops, name, [
                 "routes=" + ROUTES, "repetitions=2", f"fleet={FLEET}",
-                f"max_ticks={FLEET_TICKS}"] + extra, tmp)
+                f"max_ticks={fleet_cap}"] + world + extra, tmp, pipeline_cls)
             require(row["routes"] == FLEET, f"{name}: {FLEET} routes in one fleet")
             # all 8 routes live up to the cap: one batched forward a tick after
-            # the two warm-up ticks, and every agent steered from each of them
-            forwards = FLEET_TICKS - 2
-            require(probe.vehicle_ticks == FLEET * FLEET_TICKS
+            # the warm-up ticks, and every agent steered from each of them
+            forwards = fleet_cap - warmup
+            require(probe.vehicle_ticks == FLEET * fleet_cap
                     and len(probe.fleet_launches) == forwards
                     and probe.steered == FLEET * forwards,
                     f"{name}: {probe.vehicle_ticks} world ticks, "
@@ -907,13 +953,14 @@ def closed_loop(cfg, ops, gpu):
             row.update(batched_forwards=len(probe.fleet_launches),
                        fleet_seconds=probe.fleet_seconds,
                        vehicle_ticks_per_s=probe.vehicle_ticks / probe.fleet_seconds)
-            emit("closed_loop", gpu=gpu, **row)
+            emit("closed_loop", gpu=gpu, device_world=device_world, **row)
             out[name] = row
             for k, v in row["launches"].items():
                 total[k] += v
             torch.cuda.empty_cache()
     summary = {
         "gpu": gpu,
+        "device_world": device_world,
         "tick_ms_median": {k: out[k]["tick_ms_median"] for k in ("sync", "async")},
         "tick_ms_p90": {k: out[k]["tick_ms_p90"] for k in ("sync", "async")},
         "device_ops_per_forward": {k: out[k]["device_ops_per_forward"] for k in ("sync", "async")},
@@ -928,6 +975,391 @@ def closed_loop(cfg, ops, gpu):
         "launches": total}
     emit("closed_loop_summary", **summary)
     return summary
+
+
+# --------------------------------------------------------------------------- #
+# the device world: sensors synthesized on the card
+# --------------------------------------------------------------------------- #
+
+DW_WIDTH = 128                    # the device-world fleet width of the JAX bench
+DW_IMG_WIDTH = 8
+DW_CPU_WIDTH = {"rad": 4, "img": 2}   # the vehicles held against the CPU
+BIG_FLEET_WARMUP, BIG_FLEET_TICKS = 4, 20
+CROSS_MAP = os.path.join("data", "maps", "fake_town_cross.xodr")
+SENSOR_TOL = dict(rtol=1e-5, atol=1e-5)     # synthesized sensors, GPU against CPU
+
+
+def compact_payloads(rough_map, n, rng):
+    """``n`` compact payloads, as ``MMFNAgent`` hands them to the pipeline,
+    at poses along the 4 routes of data/routes/benchmark_cross.xml: each
+    with 3-8 actors within 25 m (walkers among them, some hidden from the
+    sensors or the birdview), its route's traffic lights at a random time,
+    a rain level and a brightness."""
+    from types import SimpleNamespace
+
+    from mmfn_tpu_torch.harness.device_world import actor_slab_np, light_slab_np
+    from mmfn_tpu_torch.harness.route import interpolate_trajectory, parse_routes_file
+    from mmfn_tpu_torch.harness.traffic import signals_from_rough_map
+
+    routes = []
+    for config in parse_routes_file(ROUTES):
+        xy = [p for p, _ in interpolate_trajectory(config.trajectory)]
+        routes.append((xy, signals_from_rough_map(rough_map, xy)))
+    out = []
+    for i in range(n):
+        xy, signals = routes[i % len(routes)]
+        k = int(rng.integers(0, len(xy) - 1))
+        (x0, y0), (x1, y1) = xy[k], xy[k + 1]
+        ego = np.array([x0, y0])
+        actors = [SimpleNamespace(
+            position=ego + rng.uniform(-25, 25, 2), velocity=rng.normal(size=2) * 3,
+            extent=float(rng.uniform(0.4, 2.5)), actor_id=int(rng.integers(0, 100)),
+            yaw=float(rng.uniform(-np.pi, np.pi)),
+            kind="walker" if rng.random() < 0.3 else "vehicle",
+            visible_sensors=bool(rng.random() < 0.85),
+            visible_graphics=bool(rng.random() < 0.9))
+            for _ in range(int(rng.integers(3, 9)))]
+        slab, valid = actor_slab_np(actors, ego)
+        out.append({"compact": True,
+                    "pose": np.array([x0, y0, np.arctan2(y1 - y0, x1 - x0)], np.float32),
+                    "target_point": (rng.normal(size=2) * 5).astype(np.float32),
+                    "speed": float(rng.uniform(0, 8)), "actors": slab, "actors_valid": valid,
+                    "lights": light_slab_np(signals.light_states(float(rng.uniform(0, 60))),
+                                            ego),
+                    "rain": float(rng.choice([0.0, 0.15, 0.6, 1.0])),
+                    "brightness": float(rng.uniform(0.25, 1.0)),
+                    "frame": int(rng.integers(0, 3000))})
+    return out
+
+
+def synced(fn):
+    def run():
+        fn()
+        torch.cuda.synchronize()
+    return run
+
+
+def check_device_world_bev(lidar, points):
+    """Kernel 1 on the device world's synthesized clouds (valid 0 and 1
+    mixed) against its plain version, exactly, with clusters of 8 and 16;
+    then its times beside the plain version's and the bound."""
+    valid = points[..., 3]
+    require(bool((valid == 0).any()) and bool((valid == 1).any()),
+            "the synthesized clouds mix valid 0 and 1")
+    want = lidar.bev_histogram_plain(points)
+    name = f"device_world_{points.shape[0]}x{points.shape[1]}_f32"
+    for cluster in lidar.CLUSTERS:
+        got = lidar._bev_histogram_cuda(points, cluster)
+        torch.cuda.synchronize()
+        diff = float((got - want).abs().max())
+        emit("bev_check", case=name, cluster=cluster, max_abs_err=diff,
+             occupied_cells=int((got > 0).sum()))
+        require(diff == 0.0, f"BEV kernel == plain version on {name}, cluster {cluster}")
+    b, n = points.shape[:2]
+    by_cluster = {c: [] for c in lidar.CLUSTERS}
+    for c in lidar.CLUSTERS + lidar.CLUSTERS[::-1]:
+        by_cluster[c].append(cuda_ms(lambda: lidar._bev_histogram_cuda(points, c)))
+    return {"shape": list(points.shape), "dtype": str(points.dtype),
+            "cluster": lidar.cluster_size(b),
+            "ms": cuda_ms(lambda: lidar.bev_histogram(points)),
+            "ms_by_cluster": {str(c): statistics.fmean(t) for c, t in by_cluster.items()},
+            "plain_ms": cuda_ms(lambda: lidar.bev_histogram_plain(points)),
+            "library_ms": None,
+            **bound(points.numel() * 4 + b * 256 * 256 * 2 * 4,
+                    12 * b * n + 2 * b * 256 * 256 * 2)}
+
+
+def check_device_world_attention(attention, dev, rows):
+    """Kernel 2 at the device-world fleet's batch (B = 128, every main-path
+    T and D, both layouts) against its plain version, within rtol/atol 1e-5;
+    then the fusion stages' shapes timed beside plain and SDPA."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    err = 0.0
+    for t in (192, 256):
+        for d in (16, 32, 64, 128):
+            for layout in ("contiguous", "projection"):
+                q, k, v = attention_inputs(DW_WIDTH, t, d, layout, g, dev)
+                got = attention.fused_attention(q, k, v)
+                want = attention.attention_plain(q, k, v)
+                torch.cuda.synchronize()
+                diff = float((got - want).abs().max())
+                emit("attention_check", shape=[DW_WIDTH, 4, t, d], layout=layout,
+                     max_abs_err=diff)
+                torch.testing.assert_close(got, want, **ATTN_TOL)
+                require(got.transpose(1, 2).is_contiguous(),
+                        f"attention output at B = {DW_WIDTH} is a (B, T, H, D) buffer")
+                if (t, d) in STAGE_SHAPES:
+                    err = max(err, diff)
+    for t, d in STAGE_SHAPES:
+        q, k, v = attention_inputs(DW_WIDTH, t, d, "projection", g, dev)
+        key = f"attention_b{DW_WIDTH}_t{t}_d{d}"
+        rows[key] = {"shape": [DW_WIDTH, 4, t, d], "layout": "projection",
+                     "ms": cuda_ms(lambda: attention.fused_attention(q, k, v)),
+                     "plain_ms": cuda_ms(lambda: attention.attention_plain(q, k, v)),
+                     "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                     **attention_bounds(q)}
+        emit("kernel_time", name=key, **rows[key])
+    return err
+
+
+def plain_forward(pipe, lidar, payloads):
+    """The same pipeline with the plain attention and the plain BEV."""
+    from mmfn_tpu_torch.harness import device_world as dw
+    from mmfn_tpu_torch.models.gpt import SelfAttention
+
+    attn = [m for m in pipe.model.modules() if isinstance(m, SelfAttention)]
+    kernel_bev = dw.lidar_to_histogram_features
+    for m in attn:
+        m.attn_impl = "xla"
+    dw.lidar_to_histogram_features = lidar.bev_histogram_plain
+    try:
+        return pipe.dispatch_fleet(payloads).cpu().numpy()
+    finally:
+        dw.lidar_to_histogram_features = kernel_bev
+        for m in attn:
+            m.attn_impl = "pallas"
+
+
+def hold_against_cpu(pipe, rough_map, payloads, waypoints):
+    """The first vehicles through a CPU pipeline of the same weights (plain
+    everything): every synthesized sensor equal to the card's (the BEV
+    exactly, the rest within 1e-5), the waypoints within CPU_TOL."""
+    from mmfn_tpu_torch.harness.device_world import DeviceWorldPipeline
+
+    cpu_pipe = DeviceWorldPipeline(copy.deepcopy(pipe.model).cpu(), pipe.config,
+                                   birdview=pipe.birdview, device="cpu")
+    cpu_pipe.set_map(rough_map)
+    want = cpu_pipe.synthesize(payloads)
+    got = pipe.synthesize(payloads)
+    errs = {}
+    for name, g, c in zip(got._fields, got, want):
+        require((g is None) == (c is None), f"{name} on both devices")
+        if g is None:
+            continue
+        g = g.cpu()
+        errs[name] = float((g.double() - c.double()).abs().max())
+        if name in ("lidar_bev", "lane_num"):
+            require(torch.equal(g, c), f"{name}: card == CPU exactly")
+        else:
+            torch.testing.assert_close(g, c, **SENSOR_TOL)
+    cpu_wp = cpu_pipe.forward(want).numpy()
+    np.testing.assert_allclose(waypoints, cpu_wp, **CPU_TOL)
+    errs["waypoints"] = float(np.abs(waypoints - cpu_wp).max())
+    return errs
+
+
+def device_world_serve(variant, width, cfg, dev, ops, lidar, rough_map, payloads):
+    """One batched device-world forward at ``width`` (launches counted from
+    0 just before and read just after: 1 of kernel 1, 4 * n_layer of kernel
+    2), held against the plain path on the card and the first vehicles
+    against the CPU; the chunked synthesis against the monolithic one."""
+    from mmfn_tpu_torch.harness.device_world import DeviceWorldPipeline
+    from mmfn_tpu_torch.harness.fleet import _zero_like_payload
+    from mmfn_tpu_torch.models import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, variant, torch.Generator().manual_seed(SEED), device=dev)
+    pipe = DeviceWorldPipeline(model, cfg, device=dev)
+    require(pipe.birdview == (variant == "img"), f"{variant}: birdview auto")
+    pipe.set_map(rough_map)
+    setup_s = time.perf_counter() - t0
+    payloads = payloads[:width]
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    waypoints = pipe.dispatch_fleet(payloads).cpu().numpy()
+    launches = {k: kernel.launches for k, kernel in ops.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"bev_hist": 1, "fused_attention": 4 * cfg.n_layer}
+    require(launches == want, f"{variant}: one forward launches {want}; got {launches}")
+    require(waypoints.shape == (width, 4, 2) and bool(np.isfinite(waypoints).all()),
+            f"{variant}: finite ({width}, 4, 2) waypoints")
+
+    plain_gpu = plain_forward(pipe, lidar, payloads)
+    np.testing.assert_allclose(waypoints, plain_gpu, **WAYPOINT_TOL)
+    n_cpu = DW_CPU_WIDTH[variant]
+    errs = hold_against_cpu(pipe, rough_map, payloads[:n_cpu], waypoints[:n_cpu])
+
+    chunked = pipe.synthesize(payloads)
+    pipe.synth_chunk = None
+    whole = pipe.synthesize(payloads)
+    pipe.synth_chunk = 32
+    for name, a, b in zip(chunked._fields, chunked, whole):
+        require((a is None and b is None) or torch.equal(a, b),
+                f"{variant}: chunked synthesis == monolithic in {name}")
+    del chunked, whole
+    # the fleet's zero payloads for finished vehicles synthesize too
+    zeros = pipe.dispatch_fleet([_zero_like_payload(payloads[0])] * 2).cpu().numpy()
+    require(bool(np.isfinite(zeros).all()), f"{variant}: zero payloads")
+
+    out = {"variant": variant, "width": width, "setup_seconds": setup_s,
+           "launches": launches, "peak_bytes": peak,
+           "max_abs_vs_plain_gpu": float(np.abs(waypoints - plain_gpu).max()),
+           "max_abs_vs_cpu": errs, "max_abs_waypoint": float(np.abs(plain_gpu).max())}
+    return pipe, out
+
+
+def device_world(cfg, dev, ops, rng, gpu, lidar, attention, rows):
+    """The device world on the cross town: kernel 1 at the synthesized
+    128 x 3,340 f32 clouds and kernel 2 at B = 128; full-width MMFN-rad at
+    width 128 and MMFN-img (birdview on the card) at width 8 through
+    ``DeviceWorldPipeline``; the phase0 CLI with ``agent.device_world=true``;
+    and a fleet of 128 ``MMFNAgent``s on one pipeline in ``FleetRunner``."""
+    from mmfn_tpu_torch.mapping import vectorize_xodr
+
+    with open(CROSS_MAP) as f:
+        rough_map, _, _ = vectorize_xodr(f.read(), tool_path=MAP_TOOL, birdview=False)
+    payloads = compact_payloads(rough_map, DW_WIDTH, rng)
+    total = {name: 0 for name in ops.KERNELS}
+    laps = Laps()
+
+    pipe, rad = device_world_serve("rad", DW_WIDTH, cfg, dev, ops, lidar, rough_map, payloads)
+    for k, v in rad["launches"].items():
+        total[k] += v
+    laps("rad_serve")
+    rows["bev_device_world"] = check_device_world_bev(lidar, pipe.sensors(payloads)["points"])
+    emit("kernel_time", name="bev_device_world", **rows["bev_device_world"])
+    attn_err = check_device_world_attention(attention, dev, rows)
+    laps("kernels")
+
+    fwd, top = profile_calls(lambda: pipe.dispatch_fleet(payloads).cpu(), 3)
+    syn, syn_top = profile_calls(synced(lambda: pipe.synthesize(payloads)), 3)
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pipe.dispatch_fleet(payloads).cpu()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    rad.update(gpu=gpu, step_ms_median=statistics.median(lat),
+               vehicles_per_s=DW_WIDTH / statistics.median(lat) * 1e3,
+               device_busy_ms_per_forward=fwd["device_busy_ms_per_call"],
+               device_ops_per_forward=fwd["device_ops_per_call"],
+               device_idle_share=fwd["device_idle_share"],
+               profiled_forward_ms=fwd["wall_ms_per_call"],
+               synthesis_busy_ms=syn["device_busy_ms_per_call"],
+               synthesis_ops=syn["device_ops_per_call"],
+               synthesis_share_of_busy=(syn["device_busy_ms_per_call"]
+                                        / fwd["device_busy_ms_per_call"]
+                                        if fwd["device_busy_ms_per_call"] else None))
+    emit("device_world_serve", **rad, top=top, synthesis_top=syn_top)
+    torch.cuda.empty_cache()
+    laps("rad_profile")
+
+    ipipe, img = device_world_serve("img", DW_IMG_WIDTH, cfg, dev, ops, lidar, rough_map,
+                                    payloads)
+    for k, v in img["launches"].items():
+        total[k] += v
+    ifwd, itop = profile_calls(lambda: ipipe.dispatch_fleet(payloads[:DW_IMG_WIDTH]).cpu(), 3)
+    img.update(gpu=gpu, device_busy_ms_per_forward=ifwd["device_busy_ms_per_call"],
+               device_ops_per_forward=ifwd["device_ops_per_call"],
+               device_idle_share=ifwd["device_idle_share"],
+               profiled_forward_ms=ifwd["wall_ms_per_call"])
+    emit("device_world_serve", **img, top=itop)
+    del ipipe
+    torch.cuda.empty_cache()
+    laps("img")
+
+    loop = closed_loop(cfg, ops, gpu, device_world=True)
+    for k, v in loop["launches"].items():
+        total[k] += v
+    laps("closed_loop")
+    fleet = big_fleet(pipe, cfg, ops, gpu, rad["device_busy_ms_per_forward"])
+    for k, v in fleet["launches"].items():
+        total[k] += v
+    laps("fleet128")
+    summary = {"gpu": gpu, "launches": total, "seconds": laps.seconds,
+               "attention_max_abs_err_at_fleet_width": attn_err,
+               "rad_width128": {k: rad[k] for k in (
+                   "step_ms_median", "vehicles_per_s", "device_busy_ms_per_forward",
+                   "device_ops_per_forward", "device_idle_share", "synthesis_share_of_busy",
+                   "peak_bytes")},
+               "img_width8": {k: img[k] for k in (
+                   "device_busy_ms_per_forward", "device_ops_per_forward",
+                   "device_idle_share", "peak_bytes")},
+               "closed_loop": {k: loop[k] for k in (
+                   "tick_ms_median", "tick_ms_p90", "device_ops_per_forward",
+                   "world_ms_per_tick", "fleet_vehicle_ticks_per_s")},
+               "fleet128_vehicle_ticks_per_s": fleet["vehicle_ticks_per_s"]}
+    emit("device_world_summary", **summary)
+    return summary
+
+
+def big_fleet(served, cfg, ops, gpu, busy_ms):
+    """``DW_WIDTH`` ``MMFNAgent(device_world=True)`` on one pipeline of the
+    ``served`` pipeline's model in ``FleetRunner`` (as bench_loop.py's compact-world fleet
+    mode does), on a straight 960 m route each, one map: BIG_FLEET_WARMUP +
+    BIG_FLEET_TICKS ticks, pipelined then lockstep. Every route runs to its
+    cap with a batched forward on every tick after the first (1 kernel-1 and
+    4 * n_layer kernel-2 launches each) that steers every agent, and no
+    crash. Timed:
+    the last BIG_FLEET_TICKS fleet ticks (between batched forwards), the
+    worlds' and agents' host ms in them; ``busy_ms`` is the width's device
+    busy time per batched forward, profiled apart."""
+    from mmfn_tpu_torch.harness.agents import MMFNAgent
+    from mmfn_tpu_torch.harness.device_world import DeviceWorldPipeline
+    from mmfn_tpu_torch.harness.fleet import FleetRunner
+    from mmfn_tpu_torch.harness.phase0 import FALLBACK_XODR
+    from mmfn_tpu_torch.harness.route import RouteConfig
+
+    n, ticks = DW_WIDTH, BIG_FLEET_WARMUP + BIG_FLEET_TICKS
+    want = {"bev_hist": 1, "fused_attention": 4 * cfg.n_layer}
+    out, total = {}, {name: 0 for name in ops.KERNELS}
+    pipe = DeviceWorldPipeline(served.model, cfg, device=served.device)
+    for name, pipelined in (("pipelined", True), ("lockstep", False)):
+        probe = ClosedLoopProbe(ops, DeviceWorldPipeline)
+        with tempfile.TemporaryDirectory() as tmp:
+            agents = [MMFNAgent({"variant": "rad", "pipeline": pipe, "config": cfg,
+                                 "rmap_tool": MAP_TOOL, "tmp_dir": os.path.join(tmp, str(i))})
+                      for i in range(n)]
+            routes = [{"config": RouteConfig(route_id=str(i), town="TownStraight", index=i,
+                                             trajectory=[(-480.0, -1.75, 0.0),
+                                                         (480.0, -1.75, 0.0)]),
+                       "opendrive_str": FALLBACK_XODR, "max_ticks": ticks,
+                       "world_kwargs": {"compact_sensors": True, "seed": i}}
+                      for i in range(n)]
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                with probe:
+                    records = FleetRunner(max_wall_seconds=900, pipelined=pipelined).run(
+                        agents, routes)
+            finally:
+                for a in agents:
+                    a.destroy()
+            seconds = time.perf_counter() - t0
+        launches = probe.launches()
+        forwards = ticks - 1
+        require(len(records) == n and all(
+            r is not None and bool(r.status) and "Agent crashed" not in r.status
+            and np.isfinite(r.scores["score_composed"]) for r in records),
+            f"fleet of {n} {name}: every route scored, no crash")
+        require(probe.vehicle_ticks == n * ticks and len(probe.fleet_t) == forwards
+                and probe.steered == n * forwards,
+                f"fleet of {n} {name}: {probe.vehicle_ticks} world ticks, "
+                f"{len(probe.fleet_t)} batched forwards, {probe.steered} steered")
+        bad = [x for x in probe.fleet_launches if x != want]
+        require(not bad, f"fleet of {n} {name}: every batched forward launches {want}")
+        last = n * BIG_FLEET_TICKS
+        window_s = probe.fleet_t[-1] - probe.fleet_t[-1 - BIG_FLEET_TICKS]
+        row = {"run": name, "gpu": gpu, "width": n, "ticks": ticks, "seconds": seconds,
+               "launches": launches, "batched_forwards": len(probe.fleet_t),
+               "vehicle_ticks_per_s": last / window_s,
+               "fleet_tick_ms": window_s / BIG_FLEET_TICKS * 1e3,
+               "world_ms_per_fleet_tick": (sum(probe.frame_ms[-last:])
+                                           + sum(probe.step_ms[-last:])) / BIG_FLEET_TICKS,
+               "agent_prep_thread_ms_per_fleet_tick": sum(probe.prep_ms[-last:])
+               / BIG_FLEET_TICKS,
+               "agent_finish_ms_per_fleet_tick": sum(probe.finish_ms[-last:])
+               / BIG_FLEET_TICKS,
+               "device_busy_ms_per_fleet_tick": busy_ms,
+               "status": records[0].status}
+        emit("device_world_fleet", **row)
+        out[name] = row
+        for k, v in launches.items():
+            total[k] += v
+    return {"launches": total,
+            "vehicle_ticks_per_s": {k: r["vehicle_ticks_per_s"] for k, r in out.items()}}
 
 
 # --------------------------------------------------------------------------- #
@@ -1376,15 +1808,20 @@ def main() -> int:
     laps("map_tool")
     loop = closed_loop(cfg, ops, gpu)
     laps("closed_loop")
+    torch.cuda.empty_cache()
+    world = device_world(cfg, dev, ops, rng, gpu, lidar, attention, rows)
+    laps("device_world")
+    torch.cuda.empty_cache()
     run_training(cfg, dev, ops)
     laps("training")
 
     # the launches of the served paths: MMFN-rad's requests, the baselines'
-    # ticks and the closed loop's four phase0 runs
+    # ticks, the closed loop's four phase0 runs and the device world's
+    # forwards, phase0 runs and fleets
     for b in baselines.values():
         for name, n in b["launches"].items():
             launches[name] += n
-    for name, n in loop["launches"].items():
+    for name, n in list(loop["launches"].items()) + list(world["launches"].items()):
         launches[name] += n
 
     def per_forward_ms(b, shapes):

@@ -34,9 +34,15 @@ order, runs while the host ticks the world, and never queues behind the
 next forward; a fetcher thread, as the JAX package keeps, would only wait
 on the same event, so there is none.
 
+``device_world`` (opt-in): the agent serves through a
+``DeviceWorldPipeline`` (``harness/device_world.py``) in a
+``KinematicWorld(compact_sensors=True)``: the world ships one compact
+``world_state`` frame a tick, the agent keeps the route planner, the map
+bootstrap and the target point, and every sensor is synthesized on the
+device inside the forward call.
+
 Not ported yet, and refused: ``mesh`` (ROADMAP queue 1 item 4,
-multi-process) and ``device_world`` with the compact ``world_state`` frames
-(ROADMAP queue 1 item 1, the device world).
+multi-process).
 """
 
 from __future__ import annotations
@@ -63,10 +69,10 @@ from mmfn_tpu_torch.utils.weights import load_reference_state_dict
 class MMFNAgent(AutonomousAgent):
     """Config keys: ``variant`` (vec | rad | img), ``model`` (a port MMFN, or
     a reference state_dict that is loaded into a fresh one), or ``pipeline``
-    (a shared ``TorchPipeline``) in its place; optional ``config``,
-    ``points_per_sweep``, ``host_bev``, ``packed``, ``tmp_dir``,
-    ``rmap_tool``, ``async_dispatch`` and ``device`` (the CUDA device when
-    absent; raises when there is none)."""
+    (a shared ``TorchPipeline`` or ``DeviceWorldPipeline``) in its place;
+    optional ``config``, ``points_per_sweep``, ``host_bev``, ``packed``,
+    ``tmp_dir``, ``rmap_tool``, ``async_dispatch``, ``device_world`` and
+    ``device`` (the CUDA device when absent; raises when there is none)."""
 
     def setup(self, conf) -> None:
         conf = conf or {}
@@ -77,10 +83,6 @@ class MMFNAgent(AutonomousAgent):
             raise NotImplementedError(
                 "mesh: serving a fleet across devices is not ported to mmfn_tpu_torch "
                 "yet (ROADMAP queue 1 item 4, multi-process)")
-        if conf.get("device_world"):
-            raise NotImplementedError(
-                "device_world: on-device sensor synthesis is not ported to mmfn_tpu_torch "
-                "yet (ROADMAP queue 1 item 1, the device world)")
         pps = conf.get("points_per_sweep", 32768)
         host_bev = conf.get("host_bev")
         if host_bev is None:
@@ -97,9 +99,17 @@ class MMFNAgent(AutonomousAgent):
                 state_dict = model
                 model = build_model(self.config, self.variant, device="cpu")
                 load_reference_state_dict(model, state_dict)
-            self.pipeline = TorchPipeline(
-                model, self.config, points_per_sweep=pps, host_bev=host_bev,
-                packed=conf.get("packed", True), device=conf.get("device"))
+            if conf.get("device_world"):
+                # sensors synthesized on the device; the world must run with
+                # compact_sensors=True
+                from mmfn_tpu_torch.harness.device_world import DeviceWorldPipeline
+
+                self.pipeline = DeviceWorldPipeline(model, self.config,
+                                                    device=conf.get("device"))
+            else:
+                self.pipeline = TorchPipeline(
+                    model, self.config, points_per_sweep=pps, host_bev=host_bev,
+                    packed=conf.get("packed", True), device=conf.get("device"))
         if self.pipeline.variant != self.variant:
             raise ValueError(f"variant {self.variant!r} but the model is "
                              f"{self.pipeline.variant!r}")
@@ -159,7 +169,8 @@ class MMFNAgent(AutonomousAgent):
 
     def _ego_target(self, input_data: dict):
         """Compass (NaN-guarded), GPS position, ego-frame target point from
-        the route planner, and the next command."""
+        the route planner, and the next command; shared by the full-sensor
+        (:meth:`_tick`) and the compact (:meth:`_prepare_compact`) paths."""
         compass = input_data["imu"][1][-1]
         if math.isnan(compass):
             compass = 0.0
@@ -200,6 +211,37 @@ class MMFNAgent(AutonomousAgent):
 
     # ---- main step ----------------------------------------------------------- #
 
+    def _prepare_compact(self, input_data: dict):
+        """Compact-world prep: the world ships only its state, the
+        ``DeviceWorldPipeline`` synthesizes the sensors; the host keeps the
+        route planner and the target point (as :meth:`_tick`)."""
+        if not hasattr(self.pipeline, "set_map"):
+            raise TypeError("compact world frames need a DeviceWorldPipeline "
+                            "(pass device_world=True to the agent config)")
+        control = VehicleControl()
+        if not self.rough_map_loaded and "opendrive" not in input_data:
+            return "control", control
+        if self.step == -1:
+            self._save_map(input_data["opendrive"][1]["opendrive"])
+            self.pipeline.set_map(self.rough_map)
+        self.step += 1
+        if not self.initialized:
+            self._init_route()
+            return "control", control
+        ws = input_data["world_state"][1]
+        compass, pos, target_point, _ = self._ego_target(input_data)
+        return "forward", {
+            "compact": True,
+            "pose": np.array([pos[0], pos[1], compass], np.float32),
+            "target_point": target_point.astype(np.float32),
+            "speed": float(input_data["speed"][1]["speed"]),
+            "actors": ws["actors"], "actors_valid": ws["actors_valid"],
+            "rain": ws["rain"], "brightness": ws["brightness"],
+            "frame": ws["frame"],
+            # the light slab for the birdview raster (zeros when absent)
+            **({"lights": ws["lights"]} if "lights" in ws else {}),
+        }
+
     def prepare_step(self, input_data: dict):
         """Host half of a tick: sensor decode, crops, lane/radar fits.
 
@@ -210,9 +252,7 @@ class MMFNAgent(AutonomousAgent):
         :meth:`finish_step`. State updates (route init, sweep buffer) happen
         here, so the caller never mutates agent state."""
         if "world_state" in input_data:
-            raise NotImplementedError(
-                "compact world_state frames need the device world, which is not ported "
-                "to mmfn_tpu_torch yet (ROADMAP queue 1 item 1)")
+            return self._prepare_compact(input_data)
         control = VehicleControl()
         if not self.rough_map_loaded and "opendrive" not in input_data:
             return "control", control
@@ -272,9 +312,12 @@ class MMFNAgent(AutonomousAgent):
         if kind == "control":
             return payload
 
-        args = (payload["image"], payload["points"], payload["lanes"],
-                payload["lane_num"], payload["radar"], payload["map_img"],
-                payload["target_point"], payload["speed"])
+        if payload.get("compact"):
+            args = (payload,)           # DeviceWorldPipeline takes the payload
+        else:
+            args = (payload["image"], payload["points"], payload["lanes"],
+                    payload["lane_num"], payload["radar"], payload["map_img"],
+                    payload["target_point"], payload["speed"])
         if self.async_dispatch:
             pending, self._pending = self._pending, (
                 HostCopy(self.pipeline.dispatch(*args)), payload)

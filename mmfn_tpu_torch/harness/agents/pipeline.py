@@ -70,6 +70,22 @@ class HostCopy:
         return self._host.numpy()
 
 
+def staging_buffer(cache: dict, nbytes: int, device: torch.device):
+    """A reusable host buffer of ``nbytes`` (pinned for a CUDA ``device``)
+    from ``cache``, once the previous copy out of it has finished; returns
+    (uint8 buffer, event to record after the next copy, or None)."""
+    buf = cache.get(nbytes)
+    if buf is None:
+        cuda = device.type == "cuda"
+        buf = (torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda),
+               torch.cuda.Event() if cuda else None)
+        cache[nbytes] = buf
+    host, done = buf
+    if done is not None:
+        done.synchronize()       # the previous copy out of this buffer
+    return host, done
+
+
 class TorchPipeline:
     """Wraps an MMFN into one sensor -> waypoints call.
 
@@ -117,18 +133,6 @@ class TorchPipeline:
             np.asarray(velocity, dtype=np.float32),
         )
 
-    def _staging_buffer(self, nbytes: int):
-        buf = self._staging.get(nbytes)
-        if buf is None:
-            cuda = self.device.type == "cuda"
-            buf = (torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda),
-                   torch.cuda.Event() if cuda else None)
-            self._staging[nbytes] = buf
-        host, done = buf
-        if done is not None:
-            done.synchronize()       # the previous copy out of this buffer
-        return host, done
-
     def _to_device(self, rows: Sequence[tuple]) -> List[Optional[torch.Tensor]]:
         """Per-sample transport tuples -> batched device tensors (None kept)."""
         n = len(rows)
@@ -144,7 +148,7 @@ class TorchPipeline:
             a = col[0]
             layout.append((total, a.nbytes, a.shape, a.dtype))
             total += -(-n * a.nbytes // _ALIGN) * _ALIGN
-        host, done = self._staging_buffer(total)
+        host, done = staging_buffer(self._staging, total, self.device)
         host_np = host.numpy()
         for col, item in zip(cols, layout):
             if item is None:

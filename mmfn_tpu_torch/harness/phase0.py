@@ -21,14 +21,17 @@ aim, cilrs and transfuser; ``agent.n_layer``, ``agent.n_embd``,
 ``device=cpu`` runs the model on the CPU). A model agent serves its forward
 through ``TorchPipeline`` with ``host_bev`` off, so on the GPU each forward
 launches the BEV kernel (unless ``agent.host_bev=true``), and with
-``agent.attn_impl=pallas`` the attention kernel too.
+``agent.attn_impl=pallas`` the attention kernel too. ``agent.device_world``
+serves it through ``DeviceWorldPipeline`` instead, in a world that ships
+compact ``world_state`` frames (``compact_sensors``): every sensor is
+synthesized on the device, and each forward launches the BEV kernel once
+for the whole batch.
 
 Not ported yet, and refused, naming the ROADMAP item: ``simulator: carla``,
 ``.xosc`` routes, ``background_traffic`` > 0, ``weather_animation``,
 ``record``, ``collect_offsets`` with the expert, ``agent.type`` expert, auto
-or remote (queue 1 item 2, the rest of the harness); ``agent.device_world``
-(item 1, the device world); ``agent.fleet_devices`` > 1 (item 4,
-multi-process).
+or remote (queue 1 item 2, the rest of the harness); ``agent.fleet_devices``
+> 1 (item 4, multi-process).
 
 Usage:
     python -m mmfn_tpu_torch.harness.phase0 --config run_steps/config/eval.yaml \\
@@ -80,10 +83,6 @@ def _refuse_unported(cfg) -> None:
         raise NotImplementedError(f"collect_offsets: expert data collection {item2}")
     if agent.get("type") in ("expert", "auto", "remote"):
         raise NotImplementedError(f"agent.type={agent.get('type')}: that agent {item2}")
-    if agent.get("device_world"):
-        raise NotImplementedError("agent.device_world: on-device sensor synthesis is not "
-                                  "ported to mmfn_tpu_torch yet (ROADMAP queue 1 item 1, "
-                                  "the device world)")
     if int(agent.get("fleet_devices", 1)) > 1:
         raise NotImplementedError("agent.fleet_devices > 1: serving across devices is not "
                                   "ported to mmfn_tpu_torch yet (ROADMAP queue 1 item 4, "
@@ -141,10 +140,16 @@ def build_agent(cfg, shared=None):
     if "pipeline" not in shared:
         model = build_model(gconf, variant, torch.Generator().manual_seed(SEED), device="cpu")
         _load_weights(model, agent_cfg)
-        # agent.host_bev=true bins the LiDAR on the host (no BEV kernel)
-        shared["pipeline"] = TorchPipeline(model, gconf,
-                                           host_bev=bool(agent_cfg.get("host_bev", False)),
-                                           device=device)
+        if agent_cfg.get("device_world"):
+            # sensors synthesized on the device from compact world frames
+            from mmfn_tpu_torch.harness.device_world import DeviceWorldPipeline
+
+            shared["pipeline"] = DeviceWorldPipeline(model, gconf, device=device)
+        else:
+            # agent.host_bev=true bins the LiDAR on the host (no BEV kernel)
+            shared["pipeline"] = TorchPipeline(
+                model, gconf, host_bev=bool(agent_cfg.get("host_bev", False)),
+                device=device)
     return MMFNAgent({"variant": variant, "pipeline": shared["pipeline"], "config": gconf,
                       "rmap_tool": agent_cfg.get("rmap_tool"),
                       # opt-in pipelined inference (one-tick actuation latency)
@@ -216,8 +221,12 @@ def main(argv=None) -> int:
         max_ticks = cfg.get("max_ticks")
         # the route XML's own <weather> overrides the `weather:` knob
         weather = getattr(config, "weather", None) or cfg.get("weather") or "ClearNoon"
+        world_kwargs = {"camera_birdview": birdview, "weather": weather}
+        if cfg["agent"].get("device_world"):
+            # the world skips host synthesis: one compact world_state a tick
+            world_kwargs["compact_sensors"] = True
         return dict(triggers=triggers, rough_map=rough_map, signals=signals,
-                    world_kwargs={"camera_birdview": birdview, "weather": weather},
+                    world_kwargs=world_kwargs,
                     max_ticks=None if max_ticks is None else int(max_ticks))
 
     shared = {}

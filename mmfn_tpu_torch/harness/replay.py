@@ -14,9 +14,10 @@ agent's recovered position equals the world position exactly.
 
 The port's own copy of the JAX package's ``harness/replay.py``; it draws
 from numpy's ``default_rng(seed)`` in the same order, so its frames are the
-JAX package's bit for bit. Not ported yet, and refused: ``compact_sensors``
-(frames for the device world, ROADMAP queue 1 item 1) and background
-traffic in ``route_environment`` (``npc_traffic``, ROADMAP queue 1 item 2).
+JAX package's bit for bit; with ``compact_sensors`` it ships the same
+``world_state`` frames for the device world (``harness/device_world.py``).
+Not ported yet, and refused: background traffic in ``route_environment``
+(``npc_traffic``, ROADMAP queue 1 item 2).
 The JAX runner's other hooks wait with ROADMAP queue 1 item 2 and are left
 out: background traffic, a pre-built (OpenSCENARIO) scenario manager, the
 episode recorder, ``WeatherSim`` and the experts' fault-removal request.
@@ -65,8 +66,10 @@ class KinematicWorld:
     # radar clutter — the kinematic analog of CARLA's weather affecting the
     # raycast sensors, so EnvironmentAction/`weather:` have physical meaning
     weather: str = "ClearNoon"
-    # compact_sensors=True (one "world_state" entry per tick for agents that
-    # synthesize sensors on the device) waits for the device world and raises
+    # compact_sensors=True: skip host sensor synthesis and emit one
+    # "world_state" entry per tick (pose, speed, actor and light slabs,
+    # weather) for agents that synthesize their sensors on the device
+    # (harness/device_world.py): ~260 B a vehicle-tick
     compact_sensors: bool = False
     x: float = field(init=False)
     y: float = field(init=False)
@@ -89,9 +92,14 @@ class KinematicWorld:
     def __post_init__(self):
         self.x, self.y, self.yaw = self.start
         if self.compact_sensors:
-            raise NotImplementedError(
-                "compact_sensors: the compact world_state frames feed the device world, "
-                "which is not ported to mmfn_tpu_torch yet (ROADMAP queue 1 item 1)")
+            from mmfn_tpu_torch.harness.device_world import GROUND_POINTS
+            if self.lidar_points != GROUND_POINTS:
+                import warnings
+                warnings.warn(
+                    f"compact_sensors ignores lidar_points={self.lidar_points}: the "
+                    f"device world synthesizes its fixed ground density "
+                    f"(device_world.GROUND_POINTS={GROUND_POINTS}); host and device "
+                    "sensor statistics will diverge", stacklevel=2)
         self._rng = np.random.default_rng(self.seed)
         self.sun_altitude_deg = 70.0
         # noise-camera pool: the no-birdview camera is information-free
@@ -239,6 +247,31 @@ class KinematicWorld:
         rng = self._rng
         gps = np.array([self.x / GPS_SCALE[0], self.y / GPS_SCALE[1], 0.0])
         imu = np.array([0.0, 0.0, 9.81, 0.0, 0.0, 0.0, self.yaw])
+        if self.compact_sensors:
+            from mmfn_tpu_torch.harness.device_world import actor_slab_np, light_slab_np
+
+            ego_xy = np.array([self.x, self.y])
+            slab, slab_valid = actor_slab_np(self.actors, ego_xy)
+            lights = light_slab_np(self.signals.light_states(f * DT)
+                                   if self.signals is not None else None, ego_xy)
+            data = {
+                "gps": (f, gps),
+                "imu": (f, imu),
+                "speed": (f, {"speed": self.v}),
+                "world_state": (f, {
+                    "pose": np.array([self.x, self.y, self.yaw], np.float32),
+                    "speed": self.v,
+                    "actors": slab,
+                    "actors_valid": slab_valid,
+                    "lights": lights,
+                    "rain": self._rain,
+                    "brightness": self._camera_brightness(),
+                    "frame": f,
+                }),
+            }
+            if f == 0:
+                data["opendrive"] = (f, {"opendrive": self.opendrive_str})
+            return data
         lidar = self._synth_lidar()
         if self.camera_birdview is not None:
             from mmfn_tpu_torch.mapping.birdview import BirdViewProducer

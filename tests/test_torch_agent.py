@@ -182,7 +182,7 @@ def test_agent_loads_a_reference_state_dict(models, rmap_tool):
 
 @pytest.mark.parametrize("conf, match", [
     ({"mesh": object()}, "ROADMAP queue 1 item 4"),
-    ({"device_world": True}, "ROADMAP queue 1 item 1"),
+    ({"device_world": True, "mesh": object()}, "ROADMAP queue 1 item 4"),
 ], ids=["mesh", "device_world"])
 def test_agent_refuses_unported_options(models, conf, match):
     _, port = models["vec"]
@@ -192,10 +192,11 @@ def test_agent_refuses_unported_options(models, conf, match):
 
 
 def test_agent_refuses_compact_world_frames(models):
+    """Compact world frames need the device world's pipeline."""
     _, port = models["vec"]
     _, cfg = _configs()
     agent = MMFNAgent({"variant": "vec", "model": port, "config": cfg, "device": "cpu"})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
+    with pytest.raises(TypeError, match="DeviceWorldPipeline"):
         agent.prepare_step({"world_state": (0, {})})
 
 

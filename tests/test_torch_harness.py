@@ -157,9 +157,6 @@ def test_world_frames_are_bit_identical(rmaps, camera):
 
 
 def test_world_refuses_unported_options(rmaps):
-    xodr, _ = rmaps["straight"]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
-        replay.KinematicWorld(xodr, (0.0, 0.0, 0.0), compact_sensors=True)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
         replay.route_environment(RoughMap().read(rmaps["straight"][1]),
                                  [(0.0, 1.75, 0.0), (50.0, 1.75, 0.0)], traffic=3)
@@ -423,8 +420,7 @@ def test_phase0_serves_an_mmfn_on_the_cpu(tool, tmp_path):
     ("simulator=carla", "item 2"), ("routes=x.xosc", "item 2"),
     ("background_traffic=4", "item 2"), ("weather_animation=true", "item 2"),
     ("record=recs", "item 2"), ("agent.type=expert", "item 2"), ("agent.type=auto", "item 2"),
-    ("agent.type=remote", "item 2"), ("agent.device_world=true", "item 1"),
-    ("agent.fleet_devices=2", "item 4"),
+    ("agent.type=remote", "item 2"), ("agent.fleet_devices=2", "item 4"),
 ], ids=lambda v: v.split("=")[0] if "=" in v else v)
 def test_phase0_refuses_unported_options(tmp_path, override, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
