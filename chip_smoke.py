@@ -92,7 +92,35 @@ Phases, in order; any failure exits non-zero before the last line:
      and 20 timed ticks: every route to its cap, one batched forward of 1
      BEV and 32 attention launches a tick steering all 128, no crash;
      vehicle-ticks/s, world and agent host ms per fleet tick;
-  10. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
+  10. the data path, through the port's own CLIs (phase1 in its own
+     process, as a user runs it; the others in process): the expert
+     collects on the cross town with phase0 (``collect.yaml``;
+     cross_train_3.xml, 2 repetitions with collect offsets,
+     background_traffic=10, WetNoon, PNG frames, 160 ticks a route; then the
+     held-out cross_straight_sn.xml with the simple pilot,
+     ``agent.type=auto``, 310 ticks), phase1 preprocesses with 4 workers,
+     phase2 trains full-width MMFN-rad at batch 24 in f32 for 2 epochs with
+     validation through kernel 2, and phase0 serves its best_model.pth on
+     the held-out route for 100 ticks. Checks: every collection record has
+     a status, no agent crash and a finite score; every frame directory of
+     each route holds the frames its expert's steps imply; every frame of a
+     route decodes and each PNG re-encodes to the same pixels; a pickle per
+     sample in each pool, four equal to a serial decode in this process, no
+     bad sample under check_data; finite losses and a best_model.pth; 32
+     kernel-2 launches a validation forward and none in training; the final
+     weights' validation loss through kernel 2 within rtol 1e-4 of the plain
+     attention's; the served run loads the checkpoint, launches 1 BEV and
+     32 attention kernels every forward tick, and its first waypoints agree
+     with the plain attention (rtol 1e-4 / atol 2e-3). Printed: the
+     expert's vehicle-ticks/s and ms a tick (world, expert, writer), frames
+     written per second, phase1 samples/s serial and with 4 workers (the
+     pool's seconds with and without the workers' start, which is timed
+     apart: 4 fresh interpreters importing the CLI, without torch), phase2
+     samples/s by epoch, the validation loss by epoch, the served tick
+     median (``data_collect``, ``data_preprocess``, ``data_train``,
+     ``data_serve`` and, after training, ``data_path_summary`` beside the
+     synthetic-data f32 rate);
+  11. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
      24 from 96 synthetic samples in the GPU data cache (``DeviceDataset``,
      no map column): f32 (3 warm-up steps, then 5 epochs of 4 steps, one host
      fetch each; finite losses; parameters and BN buffers f32 and moved; no
@@ -105,7 +133,7 @@ Phases, in order; any failure exits non-zero before the last line:
      the CPU (loss rtol 1e-4, parameters within 2.5 lr), and 2 steps + save +
      resume + 1 step against 3 uninterrupted steps (loss rtol 1e-4, the same
      iteration count and recent.log);
-  11. train each baseline 4 f32 steps at batch 24 from the same data cache
+  12. train each baseline 4 f32 steps at batch 24 from the same data cache
      (CILRS on its control loss; finite losses, every parameter moved, the
      last 3 steps timed), then validate TransFuser on 2 batches through the
      fused attention (32 launches a forward, within rtol 1e-4 of the plain
@@ -118,7 +146,8 @@ world; ``device_world_summary`` the device world's;
 ``train_summary`` the training rates, peak memory, idle share and device
 ops per step; ``timing`` the seconds of each phase), then a ``kernels`` line whose launches count the served
 paths, MMFN-rad's requests, the baselines' ticks, the closed loop's four
-phase0 runs and the device world's forwards, phase0 runs and fleets, the
+phase0 runs, the device world's forwards, phase0 runs and fleets, and the
+data path's validation and served run, the
 GPU's name and power limit as nvidia-smi gives them, and
 last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -127,9 +156,12 @@ TF32 is off for matmuls and cuDNN convolutions throughout.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -229,6 +261,22 @@ def attention_bounds(q) -> dict:
     f32 = bound(nbytes, ops)
     return {**bound(nbytes, ops, PEAK_3XTF32_FLOPS), "bound_f32_ms": f32["bound_ms"],
             "bound_f32_by": f32["bound_by"]}
+
+
+@contextlib.contextmanager
+def plain_attention(model):
+    """``model``'s attention through the plain PyTorch version while the
+    block lasts."""
+    from mmfn_tpu_torch.models.gpt import SelfAttention
+
+    attn = [m for m in model.modules() if isinstance(m, SelfAttention)]
+    for m in attn:
+        m.attn_impl = "xla"
+    try:
+        yield
+    finally:
+        for m in attn:
+            m.attn_impl = "pallas"
 
 
 def attention_inputs(b, t, d, layout, g, dev):
@@ -352,7 +400,6 @@ def check_attention(attention, dev):
 def serve(cfg, dev, ops, rng):
     from mmfn_tpu_torch.harness.agents import TorchPipeline
     from mmfn_tpu_torch.models import build_model
-    from mmfn_tpu_torch.models.gpt import SelfAttention
 
     t0 = time.perf_counter()
     model = build_model(cfg, "rad", torch.Generator().manual_seed(SEED), device=dev)
@@ -376,12 +423,8 @@ def serve(cfg, dev, ops, rng):
         np.testing.assert_allclose(fleet[i], w, **WAYPOINT_TOL)
 
     # the same weights with the plain attention on the GPU
-    attn = [m for m in model.modules() if isinstance(m, SelfAttention)]
-    for m in attn:
-        m.attn_impl = "xla"
-    plain_gpu = pipe(*call_args(payloads[0]))
-    for m in attn:
-        m.attn_impl = "pallas"
+    with plain_attention(model):
+        plain_gpu = pipe(*call_args(payloads[0]))
     # and with the plain versions of everything on the CPU
     cpu_pipe = TorchPipeline(build_model(cfg, "rad", torch.Generator().manual_seed(SEED),
                                          device="cpu"), cfg, device="cpu")
@@ -555,7 +598,6 @@ def serve_baseline(name, cfg, dev, ops, rng, gpu):
     from mmfn_tpu_torch.harness.agents import BaselineAgent
     from mmfn_tpu_torch.harness.route import RoadOption
     from mmfn_tpu_torch.models import build_baseline
-    from mmfn_tpu_torch.models.gpt import SelfAttention
 
     t0 = time.perf_counter()
     model = build_baseline(name, cfg, torch.Generator().manual_seed(SEED), device=dev)
@@ -590,12 +632,8 @@ def serve_baseline(name, cfg, dev, ops, rng, gpu):
             f"{name}: finite controls")
 
     args = calls[-1][0]
-    attn = [m for m in model.modules() if isinstance(m, SelfAttention)]
-    for m in attn:
-        m.attn_impl = "xla"
-    plain_gpu = flat(agent._forward(*args))
-    for m in attn:
-        m.attn_impl = "pallas"
+    with plain_attention(model):
+        plain_gpu = flat(agent._forward(*args))
     cpu_agent = BaselineAgent({"kind": name, "model": copy.deepcopy(model).cpu(),
                                "config": cfg, "device": "cpu",
                                "points_per_sweep": POINTS_PER_SWEEP})
@@ -668,7 +706,43 @@ def map_tool() -> None:
     emit("map_tool", path=MAP_TOOL, built_here=built, seconds=time.perf_counter() - t0)
 
 
-class ClosedLoopProbe:
+class Timed:
+    """Host-clock ms of each call of some methods or module functions while
+    the block lasts (``with Timed({label: (owner, name)}) as t:``, then
+    ``t.ms[label]``); ``_wrap`` patches any other attribute for the block."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.ms = {label: [] for label in targets}
+        self._saved = []
+
+    def _wrap(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def __enter__(self):
+        for label, (owner, name) in self.targets.items():
+            self._wrap(owner, name, lambda orig, store=self.ms[label]: _timed(orig, store))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        self._saved = []
+        return False
+
+
+def _timed(orig, store):
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        store.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapped
+
+
+class ClosedLoopProbe(Timed):
     """Times and counts what one phase0 CLI or ``FleetRunner`` run does, by
     wrapping methods of the port's classes while the run lasts (``with
     probe:``): the host clock around each ``MMFNAgent.run_step`` and the
@@ -682,19 +756,27 @@ class ClosedLoopProbe:
     pipeline is ``pipeline_cls`` (``TorchPipeline`` when None)."""
 
     def __init__(self, ops, pipeline_cls=None):
+        from mmfn_tpu_torch.harness.agents import MMFNAgent
+        from mmfn_tpu_torch.harness.replay import KinematicWorld
+        from mmfn_tpu_torch.mapping.birdview import BirdViewProducer
+
+        super().__init__({"prepare": (MMFNAgent, "prepare_step"),
+                          "frame": (KinematicWorld, "sensor_frame"),
+                          "tick": (KinematicWorld, "tick"),
+                          "birdview": (BirdViewProducer, "produce")})
         self.ops = ops
         self.pipeline_cls = pipeline_cls      # TorchPipeline when None
         self.tick_ms, self.tick_launches, self.fleet_launches = [], [], []
         self.fleet_t = []                 # host clock at each dispatch_fleet
-        self.prep_ms, self.finish_ms = [], []   # MMFNAgent.prepare_step / finish_step
-        self.frame_ms, self.step_ms, self.birdview_ms = [], [], []   # the world
+        self.finish_ms = []               # MMFNAgent.finish_step
+        self.prep_ms, self.frame_ms, self.step_ms, self.birdview_ms = (
+            self.ms[k] for k in ("prepare", "frame", "tick", "birdview"))
         self.dispatches = 0
         self.steered = 0                  # finish_step calls that returned
         self.fleet_seconds = 0.0
         self.first = None                 # (pipeline, args, waypoints)
         self.profile = None
         self._window = None               # [profiler, ms, ticks] while profiling
-        self._saved = []
 
     def launches(self):
         return {name: k.launches for name, k in self.ops.KERNELS.items()}
@@ -702,18 +784,11 @@ class ClosedLoopProbe:
     def _since(self, before):
         return {k: v - before[k] for k, v in self.launches().items()}
 
-    def _wrap(self, cls, name, make):
-        orig = getattr(cls, name)
-        self._saved.append((cls, name, orig))
-        setattr(cls, name, make(orig))
-
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
 
         from mmfn_tpu_torch.harness.agents import MMFNAgent, TorchPipeline
         from mmfn_tpu_torch.harness.fleet import FleetRunner
-        from mmfn_tpu_torch.harness.replay import KinematicWorld
-        from mmfn_tpu_torch.mapping.birdview import BirdViewProducer
         probe = self
 
         def run_step(orig):
@@ -771,16 +846,6 @@ class ClosedLoopProbe:
                 return control
             return wrapped
 
-        def timed(store):
-            def make(orig):
-                def wrapped(*args, **kw):
-                    t0 = time.perf_counter()
-                    out = orig(*args, **kw)
-                    store.append((time.perf_counter() - t0) * 1e3)
-                    return out
-                return wrapped
-            return make
-
         def fleet_run(orig):
             def wrapped(runner, agents, routes):
                 t0 = time.perf_counter()
@@ -791,20 +856,14 @@ class ClosedLoopProbe:
 
         pipeline_cls = self.pipeline_cls or TorchPipeline
         self._wrap(MMFNAgent, "run_step", run_step)
-        self._wrap(MMFNAgent, "prepare_step", timed(self.prep_ms))
         self._wrap(MMFNAgent, "finish_step", finish_step)
         self._wrap(pipeline_cls, "dispatch", dispatch)
         self._wrap(pipeline_cls, "dispatch_fleet", dispatch_fleet)
-        self._wrap(KinematicWorld, "sensor_frame", timed(self.frame_ms))
-        self._wrap(KinematicWorld, "tick", timed(self.step_ms))
-        self._wrap(BirdViewProducer, "produce", timed(self.birdview_ms))
         self._wrap(FleetRunner, "run", fleet_run)
-        return self
+        return super().__enter__()
 
     def __exit__(self, *exc):
-        for cls, name, orig in reversed(self._saved):
-            setattr(cls, name, orig)
-        self._saved = []
+        super().__exit__(*exc)
         if self._window is not None:
             self._window[0].__exit__(None, None, None)
             self._window = None
@@ -878,7 +937,6 @@ def closed_loop(cfg, ops, gpu, device_world=False):
     from mmfn_tpu_torch.harness import phase0
     from mmfn_tpu_torch.harness.agents import TorchPipeline
     from mmfn_tpu_torch.harness.device_world import DeviceWorldPipeline
-    from mmfn_tpu_torch.models.gpt import SelfAttention
 
     want = {"bev_hist": 1, "fused_attention": 4 * cfg.n_layer}
     out, total = {}, {name: 0 for name in ops.KERNELS}
@@ -908,12 +966,8 @@ def closed_loop(cfg, ops, gpu, device_world=False):
                        profiled_tick_ms=probe.profile[0]["wall_ms_per_call"])
             if name == "sync" and not device_world:
                 pipe, args, waypoints = probe.first
-                attn = [m for m in pipe.model.modules() if isinstance(m, SelfAttention)]
-                for m in attn:
-                    m.attn_impl = "xla"
-                plain_gpu = pipe(*args)
-                for m in attn:
-                    m.attn_impl = "pallas"
+                with plain_attention(pipe.model):
+                    plain_gpu = pipe(*args)
                 cpu_pipe = TorchPipeline(copy.deepcopy(pipe.model).cpu(), pipe.config,
                                          points_per_sweep=pipe.points_per_sweep,
                                          host_bev=pipe.host_bev, device="cpu")
@@ -1107,19 +1161,14 @@ def check_device_world_attention(attention, dev, rows):
 def plain_forward(pipe, lidar, payloads):
     """The same pipeline with the plain attention and the plain BEV."""
     from mmfn_tpu_torch.harness import device_world as dw
-    from mmfn_tpu_torch.models.gpt import SelfAttention
 
-    attn = [m for m in pipe.model.modules() if isinstance(m, SelfAttention)]
     kernel_bev = dw.lidar_to_histogram_features
-    for m in attn:
-        m.attn_impl = "xla"
     dw.lidar_to_histogram_features = lidar.bev_histogram_plain
     try:
-        return pipe.dispatch_fleet(payloads).cpu().numpy()
+        with plain_attention(pipe.model):
+            return pipe.dispatch_fleet(payloads).cpu().numpy()
     finally:
         dw.lidar_to_histogram_features = kernel_bev
-        for m in attn:
-            m.attn_impl = "pallas"
 
 
 def hold_against_cpu(pipe, rough_map, payloads, waypoints):
@@ -1363,6 +1412,339 @@ def big_fleet(served, cfg, ops, gpu, busy_ms):
 
 
 # --------------------------------------------------------------------------- #
+# the data path: collect, preprocess, train and serve through the port's CLIs
+# --------------------------------------------------------------------------- #
+
+DATA_TRAIN_TICKS = 160            # 15 frames a route: 6 routes, 54 samples, 2 batches
+DATA_VAL_TICKS = 310              # 30 frames: 24 samples, 1 batch
+DATA_EVAL_TICKS = 100
+DATA_EPOCHS = 2
+DATA_MODEL = {}                   # model overrides of phase2 and the served agent
+DATA_DEVICE = []                  # ["device=cpu"] in a CPU rehearsal
+TRAIN_ROUTES = os.path.join("data", "routes", "cross_train_3.xml")
+VAL_ROUTE = os.path.join("data", "routes", "cross_straight_sn.xml")
+COLLECT_ARGS = ["--config", os.path.join("run_steps", "config", "collect.yaml"),
+                "map=" + CROSS_MAP,
+                "scenarios=" + os.path.join("data", "scenarios", "fake_towns_scenarios.json"),
+                "background_traffic=10", "weather=WetNoon", "agent.image_ext=png",
+                "agent.rmap_tool=" + MAP_TOOL, "resume=false", "max_wall_seconds=900"]
+
+
+def collect(phase0, tmp, name, extra):
+    """One in-process collection run of the port's phase0 CLI (the expert
+    on the host); returns its records, each finished route's (directory,
+    expert steps), its seconds and the host ms of each world, expert,
+    writer and birdview call."""
+    from mmfn_tpu_torch.data.writer import DatasetWriter
+    from mmfn_tpu_torch.harness.experts.agent import ExpertCollectionAgent
+    from mmfn_tpu_torch.harness.replay import KinematicWorld
+    from mmfn_tpu_torch.mapping.birdview import BirdViewProducer
+
+    finished, destroy = [], ExpertCollectionAgent.destroy
+
+    def record_route(agent):
+        finished.append((agent.writer.route_dir, agent.step + 1))
+        destroy(agent)
+
+    checkpoint = os.path.join(tmp, f"collect_{name}.json")
+    timed = Timed({"frame": (KinematicWorld, "sensor_frame"), "tick": (KinematicWorld, "tick"),
+                   "expert": (ExpertCollectionAgent, "run_step"),
+                   "writer": (DatasetWriter, "save_frame"),
+                   "birdview": (BirdViewProducer, "produce")})
+    ExpertCollectionAgent.destroy = record_route
+    t0 = time.perf_counter()
+    try:
+        with timed:
+            require(phase0.main(COLLECT_ARGS + ["checkpoint=" + checkpoint] + extra) == 0,
+                    f"collect {name} exits 0")
+    finally:
+        ExpertCollectionAgent.destroy = destroy
+    seconds = time.perf_counter() - t0
+    with open(checkpoint) as f:
+        records = json.load(f)["_checkpoint"]["records"]
+    for r in records:
+        require(bool(r.get("status")) and np.isfinite(r["scores"]["score_composed"])
+                and "Agent crashed" not in r["status"],
+                f"collect {name}: a status, no agent crash and a finite score: {r}")
+    return records, finished, seconds, timed.ms
+
+
+def check_frame_tree(route_dir, steps):
+    """A route's frame directories each hold the frames its expert's steps
+    imply under ``DatasetWriter.should_save``, and opendrive/ the map;
+    returns the frame count."""
+    from mmfn_tpu_torch.data.writer import SUBDIRS, DatasetWriter
+
+    want = sum(DatasetWriter(route_dir).should_save(s) for s in range(steps))
+    counts = {sub: len(os.listdir(os.path.join(route_dir, sub))) for sub in SUBDIRS}
+    require(counts.pop("opendrive") == 1 and set(counts.values()) == {want} and want > 0,
+            f"{route_dir}: {want} frames in every directory after {steps} steps: {counts}")
+    return want
+
+
+def check_frames_decode(route_dir):
+    """Every frame of one route decodes, and each PNG re-encoded with
+    data/png.py decodes to the same pixels; returns the PNG count."""
+    from mmfn_tpu_torch.data import png
+
+    pngs = 0
+    for sub in ("rgb_front", "maps", "lidar", "radar", "vectormap", "measurements"):
+        for name in sorted(os.listdir(os.path.join(route_dir, sub))):
+            path = os.path.join(route_dir, sub, name)
+            if name.endswith(".png"):
+                pixels = png.read(path)
+                require(pixels.dtype == np.uint8 and pixels.ndim == 3
+                        and np.array_equal(png.decode(png.encode(pixels)), pixels),
+                        f"{path} decodes, and re-encoded to the same pixels")
+                pngs += 1
+            elif name.endswith(".npy"):
+                require(bool(np.isfinite(np.load(path)).all()), f"{path}: finite")
+            else:
+                with open(path) as f:
+                    require(np.isfinite(json.load(f)["x"]), f"{path}: a measurement")
+    require(pngs > 0, f"{route_dir}: PNG frames")
+    return pngs
+
+
+PHASE1_WORKERS = 4
+
+
+def worker_start_seconds() -> float:
+    """Wall seconds for PHASE1_WORKERS fresh interpreters, started together,
+    to import what each spawned phase1 worker imports (the CLI's module, as
+    its ``__main__``); each must leave torch unloaded."""
+    code = "import sys, mmfn_tpu_torch.data.phase1; sys.exit('torch' in sys.modules)"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code]) for _ in range(PHASE1_WORKERS)]
+    rcs = [p.wait(timeout=120) for p in procs]
+    seconds = time.perf_counter() - t0
+    require(rcs == [0] * PHASE1_WORKERS, f"phase1's workers start without torch: {rcs}")
+    return seconds
+
+
+def preprocess(root):
+    """The port's phase1 CLI with 4 workers, in its own process as a user
+    runs it, then the train split serially in this process: a pickle a
+    sample in each pool, four of the pool's pickles equal to the serial
+    ones, and no bad sample under check_data. The pools' seconds (the CLI
+    prints each) include starting the workers, which is timed apart."""
+    from mmfn_tpu_torch.config import GlobalConfig
+    from mmfn_tpu_torch.data import dataset
+
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "mmfn_tpu_torch.data.phase1", "--config",
+                          os.path.join("run_steps", "config", "train.yaml"),
+                          f"data_folder={root}", "train_towns=[CrossWetNoon]",
+                          "val_towns=[ValWetNoon]", f"workers={PHASE1_WORKERS}"],
+                         capture_output=True, text=True, timeout=600)
+    cli_seconds = time.perf_counter() - t0
+    print(run.stdout[-2000:] + run.stderr[-2000:], end="", flush=True)
+    require(run.returncode == 0, "phase1 exits 0")
+    pool_seconds = [float(s) for s in re.findall(r"wrote \d+ samples to .* \(([0-9.]+)s\)",
+                                                 run.stdout)]
+    require(len(pool_seconds) == 2, f"phase1 times both pools: {pool_seconds}")
+    out = {"cli_seconds": cli_seconds, "pool_seconds": pool_seconds,
+           "worker_start_seconds": worker_start_seconds()}
+    base = os.path.dirname(root)
+    for split, town in (("train", "CrossWetNoon"), ("eval", "ValWetNoon")):
+        ds = dataset.CarlaDataset([os.path.join(root, f"{town}_short")], GlobalConfig())
+        pool = os.path.join(base, f"pro_{split}_fmmfn")
+        pickles = [n for n in os.listdir(pool) if n.endswith(".pkl")]
+        require(len(pickles) == len(ds) > 0, f"{split}: {len(pickles)} pickles, {len(ds)} samples")
+        require(dataset.check_data(ds) == [], f"{split}: check_data finds no bad sample")
+        out[f"{split}_samples"] = len(ds)
+        if split == "train":
+            serial = os.path.join(base, "serial_train")
+            t0 = time.perf_counter()
+            dataset.preprocess_to_pickles(ds, serial)
+            out["serial_seconds"] = time.perf_counter() - t0
+            for i in np.linspace(0, len(ds) - 1, 4).astype(int):
+                with open(os.path.join(pool, f"{i}.pkl"), "rb") as f, \
+                        open(os.path.join(serial, f"{i}.pkl"), "rb") as g:
+                    require(f.read() == g.read(), f"pickle {i}: the pool's equals the serial one")
+    samples = out["train_samples"] + out["eval_samples"]
+    out.update(samples_per_s_pool=samples / sum(pool_seconds),
+               samples_per_s_pool_after_start=samples / (
+                   sum(pool_seconds) - len(pool_seconds) * out["worker_start_seconds"]),
+               samples_per_s_serial=out["train_samples"] / out["serial_seconds"])
+    return out
+
+
+def train_on_collected(phase2, ops, root, logdir, dev):
+    """The port's phase2 CLI: full-width MMFN-rad at batch 24, f32, on the
+    collected pools for DATA_EPOCHS epochs, validating after each through
+    kernel 2; then the final weights' validation loss through kernel 2
+    against the plain attention's on the same batches."""
+    from mmfn_tpu_torch.config import GlobalConfig
+    from mmfn_tpu_torch.data.dataset import PreprocessedDataset
+    from mmfn_tpu_torch.data.device_cache import DeviceDataset
+    from mmfn_tpu_torch.models.registry import get_entry_point
+    from mmfn_tpu_torch.train import Engine
+
+    timed = Timed({"epoch": (Engine, "train"), "validate": (Engine, "validate")})
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed:
+        require(phase2.main(["--config", os.path.join("run_steps", "config", "train.yaml"),
+                             f"data_folder={root}", f"logdir={logdir}",
+                             "train_agent.entry_point=mmfn_rad", f"batch_size={TRAIN_BATCH}",
+                             f"epochs={DATA_EPOCHS}", "val_every=1", "model.attn_impl=pallas",
+                             "wandb_mode=disabled", f"seed={SEED}"]
+                            + [f"model.{k}={v}" for k, v in DATA_MODEL.items()]
+                            + DATA_DEVICE) == 0, "phase2 exits 0")
+    seconds = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    with open(os.path.join(logdir, "recent.log")) as f:
+        log = json.load(f)
+    steps_per_epoch = log["iter"] // DATA_EPOCHS
+    require(log["epoch"] == DATA_EPOCHS and len(log["val_loss"]) == DATA_EPOCHS
+            and steps_per_epoch >= 2, f"phase2 log: {log}")
+    require(bool(np.isfinite(log["train_loss"] + log["val_loss"]).all()),
+            f"finite losses: {log}")
+    require(os.path.exists(os.path.join(logdir, "best_model.pth")), "best_model.pth written")
+    val_set = PreprocessedDataset(os.path.join(os.path.dirname(root), "pro_eval_fmmfn"))
+    val_forwards = len(val_set) // TRAIN_BATCH
+    want = {"bev_hist": 0, "fused_attention": 4 * GlobalConfig(**DATA_MODEL).n_layer
+            * val_forwards * DATA_EPOCHS}
+    require(launches == want, f"phase2: a kernel-2 launch per attention layer of each "
+            f"validation forward, none in training: {launches}, want {want}")
+
+    gconf = GlobalConfig(attn_impl="pallas", **DATA_MODEL)
+    model = get_entry_point("mmfn_rad")(gconf, device=dev)
+    model.load_state_dict(torch.load(os.path.join(logdir, "model.pth"), map_location=dev,
+                                     weights_only=True))
+    engine = Engine(model, gconf, os.path.join(logdir, "check"))
+    state = engine.initial_state()
+    batches = list(DeviceDataset(val_set, gconf.max_lanes, need_map=False,
+                                 device=dev).batches(TRAIN_BATCH))
+    val_kernel = engine.validate(state, batches)
+    with plain_attention(model):
+        val_plain = engine.validate(state, batches)
+    require(abs(val_kernel - val_plain) <= TRAIN_RTOL * abs(val_plain),
+            f"validation loss {val_kernel} through kernel 2, {val_plain} plain")
+    del model, engine, state, batches
+    epoch_s = [ms / 1e3 for ms in timed.ms["epoch"]]
+    return {"seconds": seconds, "epoch_seconds": epoch_s,
+            "validate_seconds": [ms / 1e3 for ms in timed.ms["validate"]],
+            "samples_per_s_by_epoch": [steps_per_epoch * TRAIN_BATCH / s for s in epoch_s],
+            "steps_per_epoch": steps_per_epoch, "train_loss": log["train_loss"],
+            "val_loss": log["val_loss"], "val_loss_final_kernel": val_kernel,
+            "val_loss_final_plain": val_plain, "launches": launches}
+
+
+def serve_trained(phase0, ops, tmp, logdir):
+    """The port's phase0 CLI serving the trained best_model.pth on the
+    held-out route for DATA_EVAL_TICKS ticks: it must load the checkpoint,
+    every forward tick launches kernel 1 once and kernel 2 once per attention
+    layer, and the first forward's waypoints agree with the plain attention
+    on the same device."""
+    from mmfn_tpu_torch.config import GlobalConfig
+
+    captured = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(captured):
+            probe, row = run_phase0(phase0, ops, "trained", [
+                "routes=" + VAL_ROUTE, f"max_ticks={DATA_EVAL_TICKS}",
+                "agent.model_path=" + logdir]
+                + [f"agent.{k}={v}" for k, v in DATA_MODEL.items()] + DATA_DEVICE, tmp)
+    finally:
+        print(captured.getvalue()[-3000:], end="", flush=True)
+    text = captured.getvalue()
+    ckpt = os.path.join(logdir, "best_model.pth")
+    require(f"loaded checkpoint {ckpt}" in text and "random init" not in text,
+            f"phase0 loaded {ckpt}")
+    want = {"bev_hist": 1, "fused_attention": 4 * GlobalConfig(**DATA_MODEL).n_layer}
+    require(probe.vehicle_ticks == DATA_EVAL_TICKS
+            and len(probe.tick_launches) == DATA_EVAL_TICKS - 2,
+            f"trained: {probe.vehicle_ticks} world ticks, {len(probe.tick_launches)} forwards")
+    bad = [n for n in probe.tick_launches if n != want]
+    require(not bad, f"trained: every forward tick launches {want}; got {bad[:3]}")
+    pipe, args, waypoints = probe.first
+    with plain_attention(pipe.model):
+        plain = pipe(*args)
+    require(waypoints.shape == (4, 2) and bool(np.isfinite(waypoints).all()),
+            f"first-tick waypoints {waypoints}")
+    np.testing.assert_allclose(waypoints, plain, **WAYPOINT_TOL)
+    probe.first = None
+    row.update(forward_ticks=len(probe.tick_launches),
+               tick_ms_median=statistics.median(probe.tick_ms),
+               first_waypoints=waypoints.tolist(),
+               max_abs_vs_plain=float(np.abs(waypoints - plain).max()))
+    if probe.profile is not None:     # PROFILED_TICKS forward ticks from PROFILE_FROM on
+        prof = probe.profile[0]
+        row.update(device_busy_ms_per_forward=prof["device_busy_ms_per_call"],
+                   device_ops_per_forward=prof["device_ops_per_call"],
+                   device_idle_share=prof["device_idle_share"])
+    return row
+
+
+def data_path(ops, gpu, dev):
+    """Collect on the cross town with the port's expert (phase0, background
+    traffic, both pilots), preprocess with the port's phase1 (4 workers),
+    train full-width MMFN-rad on the result with the port's phase2, and serve
+    its best_model.pth with the port's phase0: the reference's own pipeline,
+    end to end, with the checks of each step."""
+    from mmfn_tpu_torch.harness import phase0
+    from mmfn_tpu_torch.train import phase2
+
+    laps = Laps()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "mmfn")
+        train = collect(phase0, tmp, "train", [
+            "routes=" + TRAIN_ROUTES, "repetitions=2", "collect_offsets=true",
+            f"max_ticks={DATA_TRAIN_TICKS}",
+            "agent.data_save=" + os.path.join(root, "CrossWetNoon_short")])
+        val = collect(phase0, tmp, "val", [
+            "routes=" + VAL_ROUTE, "agent.type=auto", f"max_ticks={DATA_VAL_TICKS}",
+            "agent.data_save=" + os.path.join(root, "ValWetNoon_short", "route_00")])
+        require(len(train[0]) == len(train[1]) == 6 and len(val[0]) == len(val[1]) == 1,
+                f"6 + 1 collected routes: {len(train[1])} + {len(val[1])}")
+        frames = sum(check_frame_tree(d, steps) for d, steps in train[1] + val[1])
+        pngs = check_frames_decode(train[1][0][0])
+        ticks = sum(steps for _, steps in train[1] + val[1])
+        ms = {k: sum(train[3][k]) + sum(val[3][k]) for k in train[3]}
+        seconds = train[2] + val[2]
+        collection = {
+            "gpu": gpu, "vehicle_ticks": ticks, "frames": frames, "seconds": seconds,
+            "vehicle_ticks_per_s": ticks / seconds, "frames_per_s": frames / seconds,
+            "ms_per_tick": {"world": (ms["frame"] + ms["tick"]) / ticks,
+                            "expert": (ms["expert"] - ms["writer"]) / ticks,
+                            "writer": ms["writer"] / ticks},
+            "writer_ms_per_frame": ms["writer"] / frames,
+            "birdview_ms_per_tick": ms["birdview"] / ticks,
+            "pngs_checked": pngs,
+            "records": [[r["route_id"], r["status"], r["scores"]["score_composed"]]
+                        for r in train[0] + val[0]]}
+        emit("data_collect", **collection)
+        laps("collect")
+        pre = preprocess(root)
+        require(pre["train_samples"] >= 2 * TRAIN_BATCH and pre["eval_samples"] >= TRAIN_BATCH,
+                f"enough samples: {pre}")
+        emit("data_preprocess", gpu=gpu, **pre)
+        laps("preprocess")
+        logdir = os.path.join(tmp, "log")
+        trained = train_on_collected(phase2, ops, root, logdir, dev)
+        emit("data_train", gpu=gpu, **trained)
+        torch.cuda.empty_cache()
+        laps("train")
+        served = serve_trained(phase0, ops, tmp, logdir)
+        emit("data_serve", gpu=gpu, **served)
+        laps("serve")
+    launches = {name: trained["launches"][name] + served["launches"][name]
+                for name in ops.KERNELS}
+    return {"gpu": gpu, "collection": {k: collection[k] for k in (
+                "vehicle_ticks_per_s", "ms_per_tick", "frames_per_s", "writer_ms_per_frame")},
+            "phase1_samples_per_s": {"serial": pre["samples_per_s_serial"],
+                                     "workers_4": pre["samples_per_s_pool"],
+                                     "workers_4_after_start": pre["samples_per_s_pool_after_start"]},
+            "phase1_worker_start_seconds": pre["worker_start_seconds"],
+            "phase2_samples_per_s_by_epoch": trained["samples_per_s_by_epoch"],
+            "val_loss_by_epoch": trained["val_loss"],
+            "eval_tick_ms_median": served["tick_ms_median"],
+            "seconds": laps.seconds, "launches": launches}
+
+
+# --------------------------------------------------------------------------- #
 # training
 # --------------------------------------------------------------------------- #
 
@@ -1428,7 +1810,6 @@ def train_f32(cfg, dev, ops, train, val, logdir):
     """3 warm-up steps and 5 epochs of 4 batch-24 steps, each epoch ending in
     its one host fetch; then validation through the fused attention kernel
     against the plain attention on the same weights."""
-    from mmfn_tpu_torch.models.gpt import SelfAttention
     from mmfn_tpu_torch.train import Engine
 
     model = train_model(cfg, dev)
@@ -1463,12 +1844,8 @@ def train_f32(cfg, dev, ops, train, val, logdir):
     ops.reset_launch_counts()
     val_loss = engine.validate(state, val_batches)
     val_launches = {name: k.launches for name, k in ops.KERNELS.items()}
-    attn = [m for m in model.modules() if isinstance(m, SelfAttention)]
-    for m in attn:
-        m.attn_impl = "xla"
-    val_plain = engine.validate(state, val_batches)
-    for m in attn:
-        m.attn_impl = "pallas"
+    with plain_attention(model):
+        val_plain = engine.validate(state, val_batches)
     require(val_launches["fused_attention"] == 32 * len(val_batches) and
             not val_launches["bev_hist"],
             f"32 attention launches per validation forward: {val_launches}")
@@ -1675,7 +2052,6 @@ def train_baseline(name, cfg, dev, ops, train, val):
     losses, every parameter moved. TransFuser then validates through the
     fused attention kernel against the plain attention."""
     from mmfn_tpu_torch.models import build_baseline
-    from mmfn_tpu_torch.models.gpt import SelfAttention
     from mmfn_tpu_torch.train import Engine
 
     with tempfile.TemporaryDirectory() as logdir:
@@ -1708,10 +2084,8 @@ def train_baseline(name, cfg, dev, ops, train, val):
             ops.reset_launch_counts()
             val_loss = engine.validate(state, val_batches)
             val_launches = {k: kernel.launches for k, kernel in ops.KERNELS.items()}
-            attn = [m for m in model.modules() if isinstance(m, SelfAttention)]
-            for m in attn:
-                m.attn_impl = "xla"
-            val_plain = engine.validate(state, val_batches)
+            with plain_attention(model):
+                val_plain = engine.validate(state, val_batches)
             require(val_launches == {"fused_attention": 4 * cfg.n_layer * len(val_batches),
                                      "bev_hist": 0}, f"{name}: validation launches {val_launches}")
             require(np.isfinite(val_loss) and abs(val_loss - val_plain) <= TRAIN_RTOL * abs(val_plain),
@@ -1812,16 +2186,22 @@ def main() -> int:
     world = device_world(cfg, dev, ops, rng, gpu, lidar, attention, rows)
     laps("device_world")
     torch.cuda.empty_cache()
-    run_training(cfg, dev, ops)
+    data = data_path(ops, gpu, dev)
+    laps("data_path")
+    torch.cuda.empty_cache()
+    training = run_training(cfg, dev, ops)
     laps("training")
+    emit("data_path_summary", **data, training_f32_samples_per_s_synthetic=training[
+        "f32_samples_per_s"])
 
     # the launches of the served paths: MMFN-rad's requests, the baselines'
-    # ticks, the closed loop's four phase0 runs and the device world's
-    # forwards, phase0 runs and fleets
+    # ticks, the closed loop's four phase0 runs, the device world's forwards,
+    # phase0 runs and fleets, and the data path's validation and serving
     for b in baselines.values():
         for name, n in b["launches"].items():
             launches[name] += n
-    for name, n in list(loop["launches"].items()) + list(world["launches"].items()):
+    for name, n in (list(loop["launches"].items()) + list(world["launches"].items())
+                    + list(data["launches"].items())):
         launches[name] += n
 
     def per_forward_ms(b, shapes):

@@ -29,10 +29,10 @@ from mmfn_tpu_torch.config import GlobalConfig
 from mmfn_tpu_torch.control.pid import WaypointController
 from mmfn_tpu_torch.control.planner import RoutePlanner
 from mmfn_tpu_torch.data.batch import Batch
+from mmfn_tpu_torch.data.host_ops import scale_and_crop_image
 from mmfn_tpu_torch.device import resolve_device
 from mmfn_tpu_torch.harness.agents.base import AutonomousAgent, Track, VehicleControl
 from mmfn_tpu_torch.models.baselines import BASELINES, build_baseline
-from mmfn_tpu_torch.ops.image import scale_and_crop_image
 from mmfn_tpu_torch.ops.lidar import GRID, lidar_to_histogram_features, pad_points
 from mmfn_tpu_torch.utils.weights import load_reference_state_dict
 

@@ -57,12 +57,11 @@ import numpy as np
 from mmfn_tpu_torch.config import GlobalConfig
 from mmfn_tpu_torch.control.pid import WaypointController
 from mmfn_tpu_torch.control.planner import RoutePlanner
+from mmfn_tpu_torch.data.host_ops import radar_to_size_np, scale_and_crop_image
 from mmfn_tpu_torch.harness.agents.base import AutonomousAgent, Track, VehicleControl
 from mmfn_tpu_torch.harness.agents.pipeline import HostCopy, TorchPipeline
 from mmfn_tpu_torch.mapping import RoughMap, build_rmap
 from mmfn_tpu_torch.models.mmfn import build_model
-from mmfn_tpu_torch.ops.image import scale_and_crop_image
-from mmfn_tpu_torch.ops.radar import radar_to_size_np
 from mmfn_tpu_torch.utils.weights import load_reference_state_dict
 
 

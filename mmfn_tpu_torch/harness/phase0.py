@@ -9,9 +9,17 @@ checkpoint JSON (``harness/statistics.py``), which either package reads.
 Supported: ``routes``, ``map``, ``scenarios`` (JSON triggers), ``signals``,
 ``repetitions``, ``fleet`` (``harness/fleet.py``; ``agent.async_dispatch``
 selects the pipelined fleet), ``weather`` presets and a route's own
-``<weather>``, ``max_ticks``, ``max_wall_seconds``, ``resume`` /
-``checkpoint``; ``agent.type`` e2e (``agent.variant`` vec | rad | img), npc,
-aim, cilrs and transfuser; ``agent.n_layer``, ``agent.n_embd``,
+``<weather>``, ``weather_animation`` (``WeatherSim``; a number is its time
+compression) with ``weather_start_hour``, ``background_traffic``
+(``harness/npc_traffic.py``, seeded with the route's index), ``max_ticks``,
+``max_wall_seconds``, ``resume`` / ``checkpoint``; ``agent.type`` e2e
+(``agent.variant`` vec | rad | img), npc, aim, cilrs, transfuser, and the
+data-collection experts ``expert`` (``agent.pilot`` mmfn | auto) and
+``auto`` (the expert with the simple pilot), which write a dataset frame
+every 10 ticks under ``agent.data_save`` (one ``route_NN`` directory per
+route unless the path names one) as ``agent.image_ext`` (png | npy), with
+``agent.seed``, ``agent.force_unblock`` and ``collect_offsets`` (later
+repetitions start laterally offset); ``agent.n_layer``, ``agent.n_embd``,
 ``agent.n_head``, ``agent.attn_impl`` and ``agent.max_lanes``;
 ``agent.model_path``, a directory holding the port's ``best_model.pth``
 (``train/engine.py``; random weights from seed 0 without one);
@@ -25,23 +33,25 @@ launches the BEV kernel (unless ``agent.host_bev=true``), and with
 serves it through ``DeviceWorldPipeline`` instead, in a world that ships
 compact ``world_state`` frames (``compact_sensors``): every sensor is
 synthesized on the device, and each forward launches the BEV kernel once
-for the whole batch.
+for the whole batch. The experts run on the host, as the JAX package's do,
+and need no device.
 
 Not ported yet, and refused, naming the ROADMAP item: ``simulator: carla``,
-``.xosc`` routes, ``background_traffic`` > 0, ``weather_animation``,
-``record``, ``collect_offsets`` with the expert, ``agent.type`` expert, auto
-or remote (queue 1 item 2, the rest of the harness); ``agent.fleet_devices``
-> 1 (item 4, multi-process).
+``.xosc`` routes, ``record`` and ``agent.type=remote`` (queue 1 item 2, the
+rest of the harness); ``agent.fleet_devices`` > 1 (item 4, multi-process).
 
 Usage:
     python -m mmfn_tpu_torch.harness.phase0 --config run_steps/config/eval.yaml \\
         [agent.type=npc agent.variant=rad routes=path.xml device=cpu ...]
+    python -m mmfn_tpu_torch.harness.phase0 --config run_steps/config/collect.yaml \\
+        [routes=... map=... agent.data_save=<root>/<Town>_short ...]
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import sys
 import time
 
@@ -73,16 +83,10 @@ def _refuse_unported(cfg) -> None:
         raise NotImplementedError(f"simulator: carla: the CARLA glue {item2}")
     if str(cfg.get("routes", "")).endswith(".xosc"):
         raise NotImplementedError(f".xosc routes: OpenSCENARIO {item2}")
-    if int(cfg.get("background_traffic", 0)) > 0:
-        raise NotImplementedError(f"background_traffic > 0: npc_traffic {item2}")
-    if cfg.get("weather_animation"):
-        raise NotImplementedError(f"weather_animation: WeatherSim {item2}")
     if cfg.get("record"):
         raise NotImplementedError(f"record: the episode recorder {item2}")
-    if cfg.get("collect_offsets") and agent.get("type") in ("expert", "auto"):
-        raise NotImplementedError(f"collect_offsets: expert data collection {item2}")
-    if agent.get("type") in ("expert", "auto", "remote"):
-        raise NotImplementedError(f"agent.type={agent.get('type')}: that agent {item2}")
+    if agent.get("type") == "remote":
+        raise NotImplementedError(f"agent.type=remote: the remote agent {item2}")
     if int(agent.get("fleet_devices", 1)) > 1:
         raise NotImplementedError("agent.fleet_devices > 1: serving across devices is not "
                                   "ported to mmfn_tpu_torch yet (ROADMAP queue 1 item 4, "
@@ -104,12 +108,43 @@ def _load_weights(model, agent_cfg) -> None:
               f"(seed {SEED}){bc.ENDC}")
 
 
-def build_agent(cfg, shared=None):
+def _route_save_path(data_save, route_index):
+    """Per-route dataset dir: writing several routes into one directory
+    would overwrite frames (DatasetWriter restarts ids per agent). A path
+    already naming a route (…/route_NN) is used as-is — single-route runs
+    and tests address the exact directory."""
+    if data_save is None or route_index is None \
+            or re.search(r"route_\d+$", str(data_save)):
+        return data_save
+    return os.path.join(str(data_save), f"route_{route_index:02d}")
+
+
+def build_agent(cfg, shared=None, route_index=None):
     """Construct a fresh agent per route (leaderboard_evaluator.py:264).
-    ``shared`` keeps the serving pipeline across routes and fleet members."""
+    ``shared`` keeps the serving pipeline across routes and fleet members;
+    ``route_index`` names an expert's dataset directory."""
     shared = shared if shared is not None else {}
     agent_cfg = cfg["agent"]
     agent_type = agent_cfg.get("type", "e2e")
+    if agent_type == "auto":
+        # AutoPilot = the SimplePilot rule stack under the expert agent
+        # (auto_pilot.py is MMFNPilot's simpler sibling in the reference)
+        agent_type = "expert"
+        agent_cfg = {**agent_cfg, "pilot": "auto"}
+    if agent_type == "expert":
+        # data collection (the reference's phase0 collect with MMFNPilot)
+        from mmfn_tpu_torch.harness.experts.agent import ExpertCollectionAgent
+
+        return ExpertCollectionAgent({
+            "config": GlobalConfig(max_lanes=agent_cfg.get("max_lanes", 64)),
+            "save_path": _route_save_path(agent_cfg.get("data_save"), route_index),
+            "image_ext": agent_cfg.get("image_ext", "png"),
+            "seed": agent_cfg.get("seed", 0),
+            "pilot": agent_cfg.get("pilot", "mmfn"),
+            # reference expert.yaml:1-2 ships force_destory_actor: True
+            "force_unblock": agent_cfg.get("force_unblock", True),
+            "rmap_tool": agent_cfg.get("rmap_tool"),
+        })
     if agent_type == "npc":
         from mmfn_tpu_torch.harness.agents.trivial import NpcAgent
 
@@ -157,7 +192,8 @@ def build_agent(cfg, shared=None):
 
 
 def main(argv=None) -> int:
-    from mmfn_tpu_torch.harness.replay import ClosedLoopRunner, plan_from_trajectory
+    from mmfn_tpu_torch.harness.replay import (ClosedLoopRunner, background_traffic,
+                                               plan_from_trajectory)
     from mmfn_tpu_torch.harness.result_writer import format_global_summary, format_route_record
     from mmfn_tpu_torch.harness.route import RouteIndexer, interpolate_trajectory
     from mmfn_tpu_torch.harness.statistics import StatisticsManager
@@ -198,8 +234,8 @@ def main(argv=None) -> int:
               f"without signals/lane penalties{bc.ENDC}")
 
     def route_kwargs(config):
-        """Per-route drive() kwargs: scenario triggers, signals, weather and
-        the birdview camera."""
+        """Per-route drive() kwargs: scenario triggers, signals, background
+        traffic, weather and the birdview camera."""
         triggers = None
         if cfg.get("scenarios"):
             from mmfn_tpu_torch.harness.scenarios import (
@@ -218,15 +254,31 @@ def main(argv=None) -> int:
 
             _, world_plan = plan_from_trajectory(config.trajectory)
             signals = signals_from_rough_map(rough_map, [p for p, _ in world_plan])
+        background = None if rough_map is None else background_traffic(
+            rough_map, config.trajectory, int(cfg.get("background_traffic", 0)),
+            config.index, signals)
         max_ticks = cfg.get("max_ticks")
         # the route XML's own <weather> overrides the `weather:` knob
         weather = getattr(config, "weather", None) or cfg.get("weather") or "ClearNoon"
+        # weather_animation: the sun moves over game time (srunner
+        # weather_sim.py analog); a number compresses time (60: one route
+        # minute a sun hour), true is real time
+        weather_sim = None
+        anim = cfg.get("weather_animation")
+        if anim:
+            from mmfn_tpu_torch.harness.weather import WeatherSim
+
+            weather_sim = WeatherSim(
+                preset=weather,
+                time_scale=1.0 if anim is True else float(anim),
+                start_hour=float(cfg.get("weather_start_hour", 11.0)))
         world_kwargs = {"camera_birdview": birdview, "weather": weather}
         if cfg["agent"].get("device_world"):
             # the world skips host synthesis: one compact world_state a tick
             world_kwargs["compact_sensors"] = True
         return dict(triggers=triggers, rough_map=rough_map, signals=signals,
-                    world_kwargs=world_kwargs,
+                    background=background, world_kwargs=world_kwargs,
+                    weather_sim=weather_sim,
                     max_ticks=None if max_ticks is None else int(max_ticks))
 
     shared = {}
@@ -243,7 +295,7 @@ def main(argv=None) -> int:
         if len(configs) > 1:
             from mmfn_tpu_torch.harness.fleet import FleetRunner
 
-            agents = [build_agent(cfg, shared) for _ in configs]
+            agents = [build_agent(cfg, shared, route_index=c.index) for c in configs]
             if not all(hasattr(a, "prepare_step") for a in agents):
                 raise SystemExit("fleet: N needs agents with the prepare_step/finish_step "
                                  "split (agent.type=e2e)")
@@ -260,7 +312,19 @@ def main(argv=None) -> int:
                     a.destroy()
         else:
             config = configs[0]
-            agent = build_agent(cfg, shared)
+            agent = build_agent(cfg, shared, route_index=config.index)
+            # expert collection with repetitions > 1: later repetitions start
+            # laterally offset, so the dataset carries recovery-to-lane
+            # demonstrations (harness/route.py:offset_route_start)
+            if cfg.get("collect_offsets") and cfg["agent"].get("type") in ("expert", "auto"):
+                from mmfn_tpu_torch.harness.route import collect_offset_for, offset_route_start
+
+                reps = max(1, int(cfg.get("repetitions", 1)))
+                rep = config.index // max(1, indexer.total // reps)
+                lateral = collect_offset_for(rep)
+                if lateral:
+                    config.trajectory = offset_route_start(config.trajectory, lateral)
+                    print(f"{bc.OKCYAN}collect offset {lateral:+.1f} m (rep {rep}){bc.ENDC}")
             print(f"{bc.OKCYAN}route {config.route_id} "
                   f"({config.index + 1}/{indexer.total}){bc.ENDC}")
             try:

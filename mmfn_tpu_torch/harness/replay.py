@@ -16,11 +16,11 @@ The port's own copy of the JAX package's ``harness/replay.py``; it draws
 from numpy's ``default_rng(seed)`` in the same order, so its frames are the
 JAX package's bit for bit; with ``compact_sensors`` it ships the same
 ``world_state`` frames for the device world (``harness/device_world.py``).
-Not ported yet, and refused: background traffic in ``route_environment``
-(``npc_traffic``, ROADMAP queue 1 item 2).
-The JAX runner's other hooks wait with ROADMAP queue 1 item 2 and are left
-out: background traffic, a pre-built (OpenSCENARIO) scenario manager, the
-episode recorder, ``WeatherSim`` and the experts' fault-removal request.
+The runner takes the JAX runner's background traffic
+(``harness/npc_traffic.py``), ``WeatherSim`` and the experts' fault-removal
+request, in the JAX runner's order. Two of its hooks wait with ROADMAP
+queue 1 item 2 and are left out: a pre-built (OpenSCENARIO) scenario
+manager and the episode recorder.
 """
 
 from __future__ import annotations
@@ -342,22 +342,30 @@ def plan_from_trajectory(trajectory) -> Tuple[list, list]:
     return gps_plan, world_plan
 
 
-def route_environment(rough_map, trajectory, traffic: int = 0):
+def route_environment(rough_map, trajectory, traffic: int = 0, seed: int = 0):
     """(signals, background) for a route on a vectorized map — the shared
     assembly every entry point needs: traffic lights derived from the map's
-    signal-controlled nodes along the route. Ambient NPC traffic
-    (``traffic`` > 0) waits for ``npc_traffic`` and raises, so
-    ``background`` is None."""
-    if traffic > 0:
-        raise NotImplementedError(
-            "background traffic: npc_traffic is not ported to mmfn_tpu_torch yet "
-            "(ROADMAP queue 1 item 2)")
+    signal-controlled nodes along the route, and optional ambient NPC traffic
+    gated by those lights."""
     if rough_map is None:
         return None, None
     from mmfn_tpu_torch.harness.traffic import signals_from_rough_map
 
     _, world_plan = plan_from_trajectory(trajectory)
-    return signals_from_rough_map(rough_map, [p for p, _ in world_plan]), None
+    signals = signals_from_rough_map(rough_map, [p for p, _ in world_plan])
+    return signals, background_traffic(rough_map, trajectory, traffic, seed, signals)
+
+
+def background_traffic(rough_map, trajectory, amount: int, seed: int, signals):
+    """``amount`` ambient NPC vehicles on the map's lanes, kept clear of the
+    route's start and gated by ``signals`` (None for no lights); None when
+    ``amount`` is 0."""
+    if amount <= 0:
+        return None
+    from mmfn_tpu_torch.harness.npc_traffic import BackgroundTraffic
+
+    return BackgroundTraffic([lane.nodes for lane in rough_map.lanes], amount, seed=seed,
+                             signals=signals, ego_start=trajectory[0][:2])
 
 
 class _AgentCrash(Exception):
@@ -390,17 +398,30 @@ class ClosedLoopRunner:
                   triggers: Optional[list] = None,
                   rough_map=None,
                   signals=None,
-                  world_kwargs: Optional[dict] = None) -> RouteRecord:
+                  background=None,
+                  world_kwargs: Optional[dict] = None,
+                  weather_sim=None) -> RouteRecord:
         """triggers: optional ScenarioTrigger list -> adversarial events are
         activated along the route and collisions are scored.
         rough_map: optional mmfn_tpu_torch.mapping.RoughMap -> enables the
         outside-route-lanes percentage penalty.
         signals: optional harness.traffic.SignalSet -> traffic lights / stop
-        signs are drawn by the birdview camera and scored by the
-        RunningRedLight / RunningStop criteria."""
+        signs gate the expert (privileged channel), are drawn by the birdview
+        camera and are scored by the RunningRedLight / RunningStop criteria.
+        background: optional harness.npc_traffic.BackgroundTraffic -> ambient
+        lane-following vehicles (the reference's 120-300 background actors,
+        route_scenario.py:444-475) are stepped each tick, shown to the expert,
+        and scored on collision.
+        weather_sim: optional harness.weather.WeatherSim -> the sun position
+        evolves over game time and the live preset drives the fake world's
+        sensor synthesis (srunner WeatherBehavior, weather_sim.py:91-152).
+        An agent with ``consume_unblock_request`` (the expert) may ask, once
+        a tick, for blockers within 15 m to be removed and the lights forced
+        green."""
         gen = self.drive(agent, config, opendrive_str, max_ticks=max_ticks,
                          triggers=triggers, rough_map=rough_map,
-                         signals=signals, world_kwargs=world_kwargs)
+                         signals=signals, background=background,
+                         world_kwargs=world_kwargs, weather_sim=weather_sim)
         try:
             game_time = next(gen)
             while True:
@@ -417,7 +438,9 @@ class ClosedLoopRunner:
               triggers: Optional[list] = None,
               rough_map=None,
               signals=None,
-              world_kwargs: Optional[dict] = None):
+              background=None,
+              world_kwargs: Optional[dict] = None,
+              weather_sim=None):
         """Generator form of :meth:`run_route` (same arguments): writes the
         tick's sensor frames into ``agent.sensor_interface``, yields the game
         time, and expects the agent's control via ``send``; its return value
@@ -460,7 +483,18 @@ class ClosedLoopRunner:
         timed_out = False
         failure = ""
         for _ in range(max_ticks):
+            if weather_sim is not None:   # WeatherBehavior per-tick update
+                world.set_weather(weather_sim.update(game_time),
+                                  weather_sim.sun_altitude_deg)
             scenario_actors = scenario_mgr.tick(np.array([world.x, world.y]), DT)
+            if background is not None:
+                # an actor hidden from traffic (visible_traffic false) is no
+                # obstacle to the NPCs
+                scenario_actors = scenario_actors + background.tick(
+                    np.array([world.x, world.y]), world.v, DT,
+                    game_time=game_time,
+                    other_actors=[a for a in scenario_actors
+                                  if a.visible_traffic])
             world.actors = scenario_actors   # sensors reflect the live actors
             frame = world.sensor_frame()
             # privileged channel: ground-truth ego + scenario actors, consumed
@@ -495,6 +529,17 @@ class ClosedLoopRunner:
             noise = scenario_mgr.steer_noise()
             if noise:
                 control.steer = float(np.clip(control.steer + noise, -1.0, 1.0))
+            # fault removal (force_destory_actor analog): a stop-counter-
+            # triggered request deletes blockers and forces lights green
+            if getattr(agent, "consume_unblock_request", None) is not None \
+                    and agent.consume_unblock_request():
+                scenario_mgr.remove_actors_near(
+                    np.array([world.x, world.y]), radius=15.0)
+                if background is not None:
+                    background.remove_near(
+                        np.array([world.x, world.y]), radius=15.0)
+                if signals is not None:
+                    signals.force_green(game_time, duration=10.0)
             world.tick(control)
             game_time += DT
             position = (world.x, world.y)

@@ -10,6 +10,9 @@
   math.
 - ``bev_counts_np`` / ``pad_points``: the host helpers of the serving
   pipeline.
+
+Phase 1's numpy binning (``np.histogramdd``) and the grid's constants are in
+``data/host_ops.py``.
 """
 
 from __future__ import annotations
@@ -19,14 +22,11 @@ import ctypes
 import numpy as np
 import torch
 
+from mmfn_tpu_torch.data.host_ops import (HEIGHT_SPLIT, HIST_MAX_PER_PIXEL,
+                                          PIXELS_PER_METER, X_RANGE, Y_RANGE)
 from mmfn_tpu_torch.ops._cuda import CudaKernel, check_cuda_tensor, stream_handle
 
-PIXELS_PER_METER = 8
-HIST_MAX_PER_PIXEL = 5.0
-X_RANGE = (-16.0, 16.0)
-Y_RANGE = (-24.0, 8.0)
 GRID = 256
-HEIGHT_SPLIT = -2.0  # z <= -2 -> "below" channel 0, else "above" channel 1
 CLUSTERS = (8, 16)   # thread blocks per cloud the kernel can take
 
 BEV_HIST = CudaKernel("bev_hist.cu", "mmfn_bev_hist", [

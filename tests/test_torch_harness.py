@@ -18,7 +18,8 @@ fake world, the scoring core, the map, the birdview and the phase0 CLI.
   image's inner rows and columns (its docstring says why).
 - CLI: the port's phase0 writes the same checkpoint records as the JAX CLI
   for ``agent.type=npc``, serves an MMFN on ``device=cpu``, and refuses each
-  unported option with its ROADMAP item.
+  unported option with its ROADMAP item (the collection options are held
+  against the JAX CLI in tests/test_torch_collect.py).
 
 The map tool is ``native/rough_map_node.cpp``, built with g++ into this
 module's own temporary directory (not the shared ``native/build/``).
@@ -154,12 +155,6 @@ def test_world_frames_are_bit_identical(rmaps, camera):
         jworld.tick(_controls(t))
         world.tick(_controls(t))
         assert (world.x, world.y, world.yaw, world.v) == (jworld.x, jworld.y, jworld.yaw, jworld.v)
-
-
-def test_world_refuses_unported_options(rmaps):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        replay.route_environment(RoughMap().read(rmaps["straight"][1]),
-                                 [(0.0, 1.75, 0.0), (50.0, 1.75, 0.0)], traffic=3)
 
 
 # --------------------------------------------------------------------------- #
@@ -417,9 +412,7 @@ def test_phase0_serves_an_mmfn_on_the_cpu(tool, tmp_path):
 
 
 @pytest.mark.parametrize("override, item", [
-    ("simulator=carla", "item 2"), ("routes=x.xosc", "item 2"),
-    ("background_traffic=4", "item 2"), ("weather_animation=true", "item 2"),
-    ("record=recs", "item 2"), ("agent.type=expert", "item 2"), ("agent.type=auto", "item 2"),
+    ("simulator=carla", "item 2"), ("routes=x.xosc", "item 2"), ("record=recs", "item 2"),
     ("agent.type=remote", "item 2"), ("agent.fleet_devices=2", "item 4"),
 ], ids=lambda v: v.split("=")[0] if "=" in v else v)
 def test_phase0_refuses_unported_options(tmp_path, override, item):
@@ -427,8 +420,3 @@ def test_phase0_refuses_unported_options(tmp_path, override, item):
         phase0.main(["--config", EVAL_YAML, "resume=false",
                      "checkpoint=" + str(tmp_path / "x.json"), override])
     assert not (tmp_path / "x.json").exists()
-
-
-def test_phase0_refuses_expert_offsets(tmp_path):
-    with pytest.raises(NotImplementedError, match="collect_offsets.*ROADMAP queue 1 item 2"):
-        phase0.main(["--config", EVAL_YAML, "collect_offsets=true", "agent.type=expert"])

@@ -124,7 +124,7 @@ def _port_sources():
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
-    # nor cv2, which the GPU machine does not have
+    # nor cv2 or PIL, which the GPU machine does not have
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -137,7 +137,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "flax", "mmfn_tpu", "cv2"), f"{path}: {name}"
+                assert top not in ("jax", "jaxlib", "flax", "mmfn_tpu", "cv2", "PIL"), \
+                    f"{path}: {name}"
 
 
 def test_importing_the_port_loads_no_jax():
@@ -148,7 +149,8 @@ def test_importing_the_port_loads_no_jax():
         "for m in pkgutil.walk_packages(mmfn_tpu_torch.__path__, 'mmfn_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "new = set(sys.modules) - before\n"
-        "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mmfn_tpu', 'cv2'))\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'mmfn_tpu', 'cv2', 'PIL'))\n"
         "assert not bad, bad\n"
         "print(len([m for m in new if m.startswith('mmfn_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
