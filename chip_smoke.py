@@ -68,7 +68,25 @@ Phases, in order; any failure exits non-zero before the last line:
      (host clock around ``MMFNAgent.run_step``, median and p90), device ops,
      busy ms and idle share per forward tick (profiled over 5 ticks), world
      and birdview ms per vehicle-tick, fleet vehicle-ticks/s, the records;
-  9. the device world (``harness/device_world.py``) on the cross town, with
+  9. the rest of the harness, on eval.yaml's straight road: each of the
+     seven data/scenarios/*.xosc through the port's phase0 CLI with the
+     expert, each in its own process and all at once (no vehicle collision,
+     a route score above 50); full-width MMFN-rad (attn_impl "pallas",
+     random weights from seed 0) driving cut_in_with_controller.xosc
+     through the phase0 CLI in process with ``record`` and 150 ticks (no
+     agent crash, 148 forward ticks of 1 BEV and 32 attention launches, a
+     recording of 150 frames; tick ms, device ops and busy ms per forward
+     tick, the storyboard's and the recorder's host ms a tick); the metrics
+     CLI (``python -m mmfn_tpu_torch.harness.metrics_run``, its own process)
+     with each of the four metric copies over that recording (exit 0, each
+     output file); ``scenario_run --scenario CutInFromLeftLane --agent
+     e2e --junit`` in process (full-width MMFN-vec, plain attention, a 20 s
+     wall budget: one testcase with a finite score, 1 BEV launch a forward
+     tick); the phase0 CLI with ``agent.type=remote``, the port's stack in
+     its own process and stepping, 100 ticks (every tick after the first
+     acknowledged by its seq, the stack's exit code 0; the round trip ms a
+     tick and the stack's start);
+  10. the device world (``harness/device_world.py``) on the cross town, with
      random weights from seed 0: 128 compact payloads (poses along the four
      routes, actors and traffic lights around each). Kernel 1 on the
      synthesized 128 x 3,340 f32 clouds == its plain version exactly, with
@@ -92,7 +110,7 @@ Phases, in order; any failure exits non-zero before the last line:
      and 20 timed ticks: every route to its cap, one batched forward of 1
      BEV and 32 attention launches a tick steering all 128, no crash;
      vehicle-ticks/s, world and agent host ms per fleet tick;
-  10. the data path, through the port's own CLIs (phase1 in its own
+  11. the data path, through the port's own CLIs (phase1 in its own
      process, as a user runs it; the others in process): the expert
      collects on the cross town with phase0 (``collect.yaml``;
      cross_train_3.xml, 2 repetitions with collect offsets,
@@ -120,7 +138,7 @@ Phases, in order; any failure exits non-zero before the last line:
      median (``data_collect``, ``data_preprocess``, ``data_train``,
      ``data_serve`` and, after training, ``data_path_summary`` beside the
      synthetic-data f32 rate);
-  11. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
+  12. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
      24 from 96 synthetic samples in the GPU data cache (``DeviceDataset``,
      no map column): f32 (3 warm-up steps, then 5 epochs of 4 steps, one host
      fetch each; finite losses; parameters and BN buffers f32 and moved; no
@@ -133,7 +151,7 @@ Phases, in order; any failure exits non-zero before the last line:
      the CPU (loss rtol 1e-4, parameters within 2.5 lr), and 2 steps + save +
      resume + 1 step against 3 uninterrupted steps (loss rtol 1e-4, the same
      iteration count and recent.log);
-  12. train each baseline 4 f32 steps at batch 24 from the same data cache
+  13. train each baseline 4 f32 steps at batch 24 from the same data cache
      (CILRS on its control loss; finite losses, every parameter moved, the
      last 3 steps timed), then validate TransFuser on 2 batches through the
      fused attention (32 launches a forward, within rtol 1e-4 of the plain
@@ -142,12 +160,14 @@ Phases, in order; any failure exits non-zero before the last line:
 Output: JSON lines per phase (the summary has the device ops per batch-1
 forward; ``baseline_summary`` the baselines' tick latency and device ops
 per forward; ``closed_loop_summary`` the closed loop's numbers, host world and device
-world; ``device_world_summary`` the device world's;
+world; ``scenarios_summary`` the storyboard's, the metrics', the scenario
+runner's and the remote agent's; ``device_world_summary`` the device world's;
 ``train_summary`` the training rates, peak memory, idle share and device
 ops per step; ``timing`` the seconds of each phase), then a ``kernels`` line whose launches count the served
 paths, MMFN-rad's requests, the baselines' ticks, the closed loop's four
-phase0 runs, the device world's forwards, phase0 runs and fleets, and the
-data path's validation and served run, the
+phase0 runs, the storyboard and the scenario runner, the device world's
+forwards, phase0 runs and fleets, and the data path's validation and served
+run, the
 GPU's name and power limit as nvidia-smi gives them, and
 last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -874,15 +894,17 @@ class ClosedLoopProbe(Timed):
         return len(self.step_ms)
 
 
-def run_phase0(phase0, ops, name, extra, tmp, pipeline_cls=None):
-    """One in-process run of the port's phase0 CLI under a probe, with the
-    launch counters set to 0 just before and read just after."""
+def run_phase0(phase0, ops, name, extra, tmp, pipeline_cls=None, base=None):
+    """One in-process run of the port's phase0 CLI (``base``: CLI_ARGS when
+    None, then ``extra``) under a probe, with the launch counters set to 0
+    just before and read just after."""
     checkpoint = os.path.join(tmp, f"{name}.json")
     probe = ClosedLoopProbe(ops, pipeline_cls)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with probe:
-        require(phase0.main(CLI_ARGS + ["checkpoint=" + checkpoint] + extra) == 0,
+        require(phase0.main((CLI_ARGS if base is None else base)
+                            + ["checkpoint=" + checkpoint] + extra) == 0,
                 f"phase0 {name} exits 0")
     seconds = time.perf_counter() - t0
     launches = probe.launches()
@@ -1028,6 +1050,273 @@ def closed_loop(cfg, ops, gpu, device_world=False):
         "records": {k: r["records"] for k, r in out.items()},
         "launches": total}
     emit("closed_loop_summary", **summary)
+    return summary
+
+
+# --------------------------------------------------------------------------- #
+# the rest of the harness: storyboards, recording, post-hoc metrics, the
+# scenario runner and the remote agent
+# --------------------------------------------------------------------------- #
+
+XOSC_DIR = os.path.join("data", "scenarios")
+STORY_XOSC = os.path.join(XOSC_DIR, "cut_in_with_controller.xosc")
+STORY_TICKS = 150                 # full-width MMFN-rad in the storyboard
+REMOTE_TICKS = 100
+SCENARIO_RUN_SECONDS = 20         # scenario_run's wall budget for its one repetition
+# eval.yaml's straight road (map: null), the world of the shipped episodes
+# and of its default route data/routes/smoke_route.xml
+STORY_ARGS = ["--config", os.path.join("run_steps", "config", "eval.yaml"),
+              "resume=false", "max_wall_seconds=900"]
+STORY_EXTRA = []                  # CPU rehearsal: the map tool, device=cpu, a small model
+SCENARIO_RUN_EXTRA = []           # CPU rehearsal: --device cpu --rmap-tool <tool>
+METRIC_OUTPUTS = {"comfort": "Comfort.json", "criteria_filter": "CriteriaFilter_results.json",
+                  "distance_between_vehicles": "DistanceBetweenVehicles.json",
+                  "distance_to_lane_center": "DistanceToLaneCenter.json"}
+METRICS_EXTRA = []                # CPU rehearsal: --rmap-tool <tool>
+
+
+def shipped_episodes(tmp):
+    """Each data/scenarios/*.xosc through the port's phase0 CLI with the
+    expert, each in its own process and all at once (host work only): no
+    vehicle collision and a route score above 50 each, as the JAX CLI's
+    tests require."""
+    runs = {}
+    for name in sorted(f for f in os.listdir(XOSC_DIR) if f.endswith(".xosc")):
+        checkpoint = os.path.join(tmp, f"xosc_{name}.json")
+        log = open(os.path.join(tmp, f"xosc_{name}.log"), "w")
+        cmd = [sys.executable, "-m", "mmfn_tpu_torch.harness.phase0", *STORY_ARGS,
+               "routes=" + os.path.join(XOSC_DIR, name), "agent.type=expert",
+               "checkpoint=" + checkpoint, *[a for a in STORY_EXTRA if "rmap_tool" in a]]
+        runs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                      log, checkpoint, time.perf_counter())
+    out = {}
+    try:
+        for name, (proc, log, checkpoint, t0) in runs.items():
+            rc = proc.wait(timeout=600)
+            seconds = time.perf_counter() - t0
+            log.close()
+            with open(log.name) as f:
+                tail = f.read()[-1500:]
+            require(rc == 0, f"phase0 on {name} exits 0 (rc {rc}):\n{tail}")
+            with open(checkpoint) as f:
+                records = json.load(f)["_checkpoint"]["records"]
+            require(len(records) == 1, f"{name}: one record")
+            r = records[0]
+            out[name] = {"status": r["status"], "score_route": r["scores"]["score_route"],
+                         "score_composed": r["scores"]["score_composed"],
+                         "duration_game": r["meta"]["duration_game"], "seconds": seconds}
+            require(not r["infractions"]["collisions_vehicle"],
+                    f"{name}: no vehicle collision: {r['infractions']}")
+            require(r["scores"]["score_route"] > 50, f"{name}: score_route above 50: {r}")
+    finally:
+        for proc, log, _, _ in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    emit("scenarios_xosc", episodes=out)
+    return out
+
+
+def storyboard_rad(phase0, ops, tmp):
+    """Full-width MMFN-rad driving cut_in_with_controller.xosc through the
+    port's phase0 CLI (in process) with ``record`` and a tick cap: no agent
+    crash, every tick after the two warm-up ticks a forward of 1 BEV and 32
+    attention launches, a recording of STORY_TICKS frames. Times the tick,
+    profiles 5 forward ticks, and times the storyboard's and the recorder's
+    host work a tick."""
+    from mmfn_tpu_torch.harness.openscenario import OpenScenarioManager
+    from mmfn_tpu_torch.harness.recording import EpisodeRecorder
+
+    want = {"bev_hist": 1, "fused_attention": 32}
+    record_dir = os.path.join(tmp, "record")
+    with Timed({"story": (OpenScenarioManager, "tick"),
+                "record": (EpisodeRecorder, "record_tick")}) as host:
+        probe, row = run_phase0(phase0, ops, "storyboard", [
+            "routes=" + STORY_XOSC, "agent.type=e2e", "agent.variant=rad",
+            "agent.attn_impl=pallas", "agent.model_path=null", f"max_ticks={STORY_TICKS}",
+            "record=" + record_dir] + STORY_EXTRA, tmp, base=STORY_ARGS)
+    require(probe.vehicle_ticks == STORY_TICKS and len(probe.tick_launches) == STORY_TICKS - 2,
+            f"storyboard: {probe.vehicle_ticks} world ticks, "
+            f"{len(probe.tick_launches)} forward ticks")
+    bad = [n for n in probe.tick_launches if n != want]
+    require(not bad, f"storyboard: every forward tick launches {want}; got {bad[:3]}")
+    recording = os.path.join(record_dir, "cut_in_with_controller_rep0.json")
+    with open(recording) as f:
+        frames = json.load(f)["frames"]
+    require(len(frames) == STORY_TICKS, f"a recording of {STORY_TICKS} frames: {len(frames)}")
+    lat = sorted(probe.tick_ms)
+    prof = probe.profile[0]
+    row.update(forward_ticks=len(probe.tick_launches), frames=len(frames),
+               tick_ms_median=statistics.median(lat), tick_ms_p90=lat[int(0.9 * len(lat)) - 1],
+               device_ops_per_forward=prof["device_ops_per_call"],
+               device_busy_ms_per_forward=prof["device_busy_ms_per_call"],
+               device_idle_share=prof["device_idle_share"],
+               storyboard_ms_per_tick=statistics.mean(host.ms["story"]),
+               recorder_ms_per_tick=statistics.mean(host.ms["record"]))
+    probe.first = None
+    emit("scenarios_storyboard", **row, top=probe.profile[1])
+    return row, recording
+
+
+def post_hoc_metrics(recording, tmp):
+    """The port's metrics CLI, each in its own process as a user runs it,
+    with each of the four metric copies over the storyboard's recording:
+    exit 0 and the metric's output file."""
+    out = {}
+    for name, output in METRIC_OUTPUTS.items():
+        out_dir = os.path.join(tmp, "metrics", name)
+        cmd = [sys.executable, "-m", "mmfn_tpu_torch.harness.metrics_run", "--log", recording,
+               "--metric", os.path.join("mmfn_tpu_torch", "harness", "metric_examples",
+                                        f"{name}.py"), "--out", out_dir, *METRICS_EXTRA]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        require(run.returncode == 0, f"metrics_run {name} exits 0:\n{run.stderr[-1500:]}")
+        with open(os.path.join(out_dir, output)) as f:
+            result = json.load(f)
+        require(bool(result), f"metrics_run {name}: {output} holds a result")
+        out[name] = {"seconds": seconds, "output": output, "line": run.stdout.strip()[-200:]}
+    emit("scenarios_metrics", metrics=out)
+    return out
+
+
+def scenario_runner(ops, tmp):
+    """``python -m mmfn_tpu_torch.harness.scenario_run --scenario
+    CutInFromLeftLane --agent e2e --junit`` (its ``main``, in process, so
+    that the launches are counted): eval.yaml's agent, full-width MMFN-vec,
+    with the plain attention (no ``attn_impl``), so only the BEV kernel, once
+    a forward tick. One testcase with a finite score."""
+    from mmfn_tpu_torch.harness import scenario_run
+
+    junit = os.path.join(tmp, "cut_in.xml")
+    probe = ClosedLoopProbe(ops)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with probe:
+        require(scenario_run.main(["--scenario", "CutInFromLeftLane", "--agent", "e2e",
+                                   "--junit", junit, "--timeout", str(SCENARIO_RUN_SECONDS)]
+                                  + SCENARIO_RUN_EXTRA) == 0, "scenario_run exits 0")
+    seconds = time.perf_counter() - t0
+    launches = probe.launches()
+    want = {"bev_hist": 1, "fused_attention": 0}
+    bad = [n for n in probe.tick_launches if n != want]
+    require(probe.tick_launches and not bad,
+            f"scenario_run: every forward tick launches {want}; got {bad[:3]}")
+    import xml.etree.ElementTree as ET
+
+    cases = ET.parse(junit).getroot().findall("testcase")
+    require(len(cases) == 1, f"scenario_run: one testcase, {len(cases)}")
+    text = cases[0].find("system-out").text
+    score = float(re.search(r"score_composed=(\S+)", text).group(1))
+    require(np.isfinite(score), f"scenario_run: a finite score: {text}")
+    failure = cases[0].find("failure")
+    row = {"seconds": seconds, "launches": launches, "forward_ticks": len(probe.tick_launches),
+           "world_ticks": probe.vehicle_ticks, "score_composed": score,
+           "status": "Completed" if failure is None else failure.get("message"),
+           "tick_ms_median": statistics.median(probe.tick_ms) if probe.tick_ms else None}
+    probe.first = None
+    emit("scenarios_scenario_run", **row)
+    return row
+
+
+def remote_agent(phase0, tmp):
+    """The port's phase0 CLI with ``agent.type=remote``, the port's stack
+    (``python -m mmfn_tpu_torch.harness.agents.remote``, its own process) and
+    stepping, on eval.yaml's straight route for REMOTE_TICKS ticks: every
+    tick after the first acknowledged by its own seq (the first arms
+    stepping), the stack's own exit (code 0) after ``destroy``. Times the
+    round trip a tick and the stack's start (``RemoteAgent.setup``: the
+    stack launched until it dials the bridge)."""
+    from mmfn_tpu_torch.harness.agents.remote import RemoteAgent
+
+    acks, exits = [], []
+
+    def run_step(orig):
+        def wrapped(agent, input_data, timestamp):
+            control = orig(agent, input_data, timestamp)
+            acks.append((agent._tick_seq, agent._control_seq))
+            return control
+        return wrapped
+
+    def destroy(orig):
+        def wrapped(agent):
+            proc, sock = agent.stack_process, agent._sock_path
+            orig(agent)
+            exits.append((None if proc is None else proc.returncode, os.path.exists(sock)))
+        return wrapped
+
+    checkpoint = os.path.join(tmp, "remote.json")
+    stack_cmd = f"{sys.executable} -m mmfn_tpu_torch.harness.agents.remote"
+    with Timed({"setup": (RemoteAgent, "setup"), "tick": (RemoteAgent, "run_step")}) as t:
+        t._wrap(RemoteAgent, "run_step", run_step)
+        t._wrap(RemoteAgent, "destroy", destroy)
+        t0 = time.perf_counter()
+        require(phase0.main(STORY_ARGS + [
+            "agent.type=remote", "agent.stack_cmd=" + stack_cmd, "agent.stepping=true",
+            f"max_ticks={REMOTE_TICKS}", "checkpoint=" + checkpoint]
+            + [a for a in STORY_EXTRA if "rmap_tool" in a]) == 0, "phase0 remote exits 0")
+        seconds = time.perf_counter() - t0
+    with open(checkpoint) as f:
+        r = json.load(f)["_checkpoint"]["records"][0]
+    require(np.isfinite(r["scores"]["score_composed"]) and "Agent crashed" not in r["status"],
+            f"remote: a scored record: {r}")
+    require(len(acks) == REMOTE_TICKS, f"remote: {len(acks)} ticks, want {REMOTE_TICKS}")
+    require([a for a, _ in acks] == list(range(REMOTE_TICKS)), f"remote: tick seqs {acks[:3]}")
+    unacked = [(a, c) for a, c in acks[1:] if c != a]
+    require(not unacked, f"remote: every tick after the first acknowledged: {unacked[:3]}")
+    require(exits == [(0, False)], f"remote: the stack exits 0, the bridge removed: {exits}")
+    row = {"seconds": seconds, "ticks": len(acks), "status": r["status"],
+           "score_composed": r["scores"]["score_composed"],
+           "round_trip_ms_median": statistics.median(t.ms["tick"][1:]),
+           "round_trip_ms_p90": sorted(t.ms["tick"][1:])[int(0.9 * (len(acks) - 1)) - 1],
+           "stack_start_s": t.ms["setup"][0] / 1e3, "stack_exit_code": exits[0][0]}
+    emit("scenarios_remote", **row)
+    return row
+
+
+def scenarios_phase(ops, gpu):
+    """The rest of the harness on the card: the seven shipped episodes with
+    the expert, full-width MMFN-rad in a storyboard with the recorder, the
+    metrics CLI over its recording, the scenario runner on a repaired
+    catalog name, and the remote agent. Returns the summary with the
+    launches of the two runs that serve a model."""
+    from mmfn_tpu_torch.harness import phase0
+
+    laps = Laps()
+    with tempfile.TemporaryDirectory() as tmp:
+        episodes = shipped_episodes(tmp)
+        laps("xosc")
+        story, recording = storyboard_rad(phase0, ops, tmp)
+        laps("storyboard")
+        torch.cuda.empty_cache()
+        metrics = post_hoc_metrics(recording, tmp)
+        laps("metrics")
+        runner = scenario_runner(ops, tmp)
+        laps("scenario_run")
+        torch.cuda.empty_cache()
+        remote = remote_agent(phase0, tmp)
+        laps("remote")
+    launches = {k: story["launches"][k] + runner["launches"][k] for k in story["launches"]}
+    summary = {
+        "gpu": gpu,
+        "episodes": {k: [e["status"], e["score_route"]] for k, e in episodes.items()},
+        "storyboard_tick_ms_median": story["tick_ms_median"],
+        "storyboard_tick_ms_p90": story["tick_ms_p90"],
+        "storyboard_device_ops_per_forward": story["device_ops_per_forward"],
+        "storyboard_device_busy_ms_per_forward": story["device_busy_ms_per_forward"],
+        "storyboard_device_idle_share": story["device_idle_share"],
+        "storyboard_host_ms_per_tick": story["storyboard_ms_per_tick"],
+        "recorder_host_ms_per_tick": story["recorder_ms_per_tick"],
+        "metrics_seconds": {k: m["seconds"] for k, m in metrics.items()},
+        "scenario_run_bev_launches": runner["launches"]["bev_hist"],
+        "scenario_run_forward_ticks": runner["forward_ticks"],
+        "remote_round_trip_ms_median": remote["round_trip_ms_median"],
+        "remote_round_trip_ms_p90": remote["round_trip_ms_p90"],
+        "remote_stack_start_s": remote["stack_start_s"],
+        "seconds": laps.seconds,
+        "launches": launches}
+    emit("scenarios_summary", **summary)
     return summary
 
 
@@ -2183,6 +2472,9 @@ def main() -> int:
     loop = closed_loop(cfg, ops, gpu)
     laps("closed_loop")
     torch.cuda.empty_cache()
+    scenes = scenarios_phase(ops, gpu)
+    laps("scenarios")
+    torch.cuda.empty_cache()
     world = device_world(cfg, dev, ops, rng, gpu, lidar, attention, rows)
     laps("device_world")
     torch.cuda.empty_cache()
@@ -2195,13 +2487,14 @@ def main() -> int:
         "f32_samples_per_s"])
 
     # the launches of the served paths: MMFN-rad's requests, the baselines'
-    # ticks, the closed loop's four phase0 runs, the device world's forwards,
-    # phase0 runs and fleets, and the data path's validation and serving
+    # ticks, the closed loop's four phase0 runs, the storyboard and the
+    # scenario runner, the device world's forwards, phase0 runs and fleets,
+    # and the data path's validation and serving
     for b in baselines.values():
         for name, n in b["launches"].items():
             launches[name] += n
-    for name, n in (list(loop["launches"].items()) + list(world["launches"].items())
-                    + list(data["launches"].items())):
+    for name, n in (list(loop["launches"].items()) + list(scenes["launches"].items())
+                    + list(world["launches"].items()) + list(data["launches"].items())):
         launches[name] += n
 
     def per_forward_ms(b, shapes):

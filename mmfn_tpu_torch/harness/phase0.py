@@ -6,15 +6,27 @@ iterates routes with resume, drives each through the kinematic fake world
 (``harness/replay.py``), scores it, and writes the leaderboard-format
 checkpoint JSON (``harness/statistics.py``), which either package reads.
 
-Supported: ``routes``, ``map``, ``scenarios`` (JSON triggers), ``signals``,
-``repetitions``, ``fleet`` (``harness/fleet.py``; ``agent.async_dispatch``
-selects the pipelined fleet), ``weather`` presets and a route's own
-``<weather>``, ``weather_animation`` (``WeatherSim``; a number is its time
-compression) with ``weather_start_hour``, ``background_traffic``
+Supported: ``routes`` (a route XML, or an OpenSCENARIO ``.xosc`` episode:
+its route comes from the hero's init position, ``harness/openscenario.py``
+runs its storyboard with a fresh ``OpenScenarioManager`` each repetition,
+and its ``EnvironmentAction`` sets the weather), ``map``, ``scenarios``
+(JSON triggers), ``signals``, ``repetitions``, ``fleet``
+(``harness/fleet.py``; ``agent.async_dispatch`` selects the pipelined
+fleet), ``weather`` presets and a route's own ``<weather>``,
+``weather_animation`` (``WeatherSim``; a number is its time compression)
+with ``weather_start_hour``, ``background_traffic``
 (``harness/npc_traffic.py``, seeded with the route's index), ``max_ticks``,
-``max_wall_seconds``, ``resume`` / ``checkpoint``; ``agent.type`` e2e
-(``agent.variant`` vec | rad | img), npc, aim, cilrs, transfuser, and the
-data-collection experts ``expert`` (``agent.pilot`` mmfn | auto) and
+``max_wall_seconds``, ``resume`` / ``checkpoint``, ``record`` (a
+directory: each route's ground truth is recorded to
+``{record}/{route}_rep{index}.json`` for post-hoc metrics, ``python -m
+mmfn_tpu_torch.harness.metrics_run``; sequential routes only);
+``agent.type`` e2e (``agent.variant`` vec | rad | img), npc, aim, cilrs,
+transfuser, remote (``harness/agents/remote.py``: an external stack in its
+own process, ``agent.stack_cmd``, for example ``python -m
+mmfn_tpu_torch.harness.agents.remote``, with ``agent.stepping``,
+``agent.sensors``, ``agent.socket``, ``agent.step_timeout``,
+``agent.connect_timeout``, ``agent.send_timeout`` and ``agent.env``), and
+the data-collection experts ``expert`` (``agent.pilot`` mmfn | auto) and
 ``auto`` (the expert with the simple pilot), which write a dataset frame
 every 10 ticks under ``agent.data_save`` (one ``route_NN`` directory per
 route unless the path names one) as ``agent.image_ext`` (png | npy), with
@@ -36,9 +48,9 @@ synthesized on the device, and each forward launches the BEV kernel once
 for the whole batch. The experts run on the host, as the JAX package's do,
 and need no device.
 
-Not ported yet, and refused, naming the ROADMAP item: ``simulator: carla``,
-``.xosc`` routes, ``record`` and ``agent.type=remote`` (queue 1 item 2, the
-rest of the harness); ``agent.fleet_devices`` > 1 (item 4, multi-process).
+Refused: ``simulator: carla`` (the CARLA glue needs a CARLA server, and the
+port has none to drive); ``agent.fleet_devices`` > 1, not ported yet
+(ROADMAP queue 1 item 4, multi-process).
 
 Usage:
     python -m mmfn_tpu_torch.harness.phase0 --config run_steps/config/eval.yaml \\
@@ -78,15 +90,10 @@ FALLBACK_XODR = """<?xml version="1.0" standalone="yes"?>
 
 def _refuse_unported(cfg) -> None:
     agent = cfg.get("agent") or {}
-    item2 = "is not ported to mmfn_tpu_torch yet (ROADMAP queue 1 item 2, the rest of the harness)"
     if cfg.get("simulator", "fake") == "carla":
-        raise NotImplementedError(f"simulator: carla: the CARLA glue {item2}")
-    if str(cfg.get("routes", "")).endswith(".xosc"):
-        raise NotImplementedError(f".xosc routes: OpenSCENARIO {item2}")
-    if cfg.get("record"):
-        raise NotImplementedError(f"record: the episode recorder {item2}")
-    if agent.get("type") == "remote":
-        raise NotImplementedError(f"agent.type=remote: the remote agent {item2}")
+        raise NotImplementedError("simulator: carla: the CARLA glue (the JAX package's "
+                                  "harness/carla_glue.py) needs a CARLA server; "
+                                  "mmfn_tpu_torch runs the fake world only")
     if int(agent.get("fleet_devices", 1)) > 1:
         raise NotImplementedError("agent.fleet_devices > 1: serving across devices is not "
                                   "ported to mmfn_tpu_torch yet (ROADMAP queue 1 item 4, "
@@ -149,6 +156,16 @@ def build_agent(cfg, shared=None, route_index=None):
         from mmfn_tpu_torch.harness.agents.trivial import NpcAgent
 
         return NpcAgent()
+    if agent_type == "remote":
+        # an external stack over the process bridge (RosAgent analog):
+        # agent.stack_cmd="python -m mmfn_tpu_torch.harness.agents.remote"
+        # (or $MMFN_STACK_CMD)
+        from mmfn_tpu_torch.harness.agents.remote import RemoteAgent
+
+        return RemoteAgent({k: agent_cfg[k] for k in
+                            ("stack_cmd", "sensors", "stepping", "socket", "step_timeout",
+                             "connect_timeout", "env", "send_timeout")
+                            if k in agent_cfg})
     device = resolve_device(cfg.get("device"))
     if agent_type in ("aim", "cilrs", "transfuser"):
         from mmfn_tpu_torch.harness.agents.baseline import BaselineAgent
@@ -206,10 +223,16 @@ def main(argv=None) -> int:
     _refuse_unported(cfg)
 
     endpoint = cfg.get("checkpoint", "results/eval.json")
+    # OpenSCENARIO episodes (.xosc) take their route from the hero's init
+    # position and run their storyboard through OpenScenarioManager below
+    is_xosc = str(cfg.get("routes", "")).endswith(".xosc")
+    indexer = None
     statistics = StatisticsManager()
-    indexer = RouteIndexer(cfg["routes"], repetitions=int(cfg.get("repetitions", 1)))
+    if not is_xosc:
+        indexer = RouteIndexer(cfg["routes"], repetitions=int(cfg.get("repetitions", 1)))
+        if cfg.get("resume"):
+            indexer.resume(endpoint)
     if cfg.get("resume"):
-        indexer.resume(endpoint)
         statistics.resume(endpoint)
 
     # the fake world's map: `map:` names an OpenDRIVE file; default is a
@@ -233,11 +256,35 @@ def main(argv=None) -> int:
         print(f"{bc.WARNING}map vectorization unavailable ({e}); running "
               f"without signals/lane penalties{bc.ENDC}")
 
+    xcfg = None
+    if is_xosc:
+        from mmfn_tpu_torch.harness.openscenario import hero_trajectory, parse_xosc
+        from mmfn_tpu_torch.harness.route import RouteConfig
+
+        # the map's rmap v3 ids resolve LanePosition / RoadPosition
+        xcfg = parse_xosc(cfg["routes"], rough_map=rough_map)
+        trajectory = [(x, y, 0.0) for x, y in hero_trajectory(xcfg, rough_map)]
+        route_id = os.path.splitext(os.path.basename(cfg["routes"]))[0]
+        indexer = RouteIndexer.from_configs(
+            [RouteConfig(route_id=route_id, town=xcfg.town or "XoscWorld",
+                         trajectory=trajectory)],
+            repetitions=int(cfg.get("repetitions", 1)))
+        if cfg.get("resume"):
+            indexer.resume(endpoint)
+
     def route_kwargs(config):
         """Per-route drive() kwargs: scenario triggers, signals, background
-        traffic, weather and the birdview camera."""
+        traffic, weather, the birdview camera and, for an .xosc episode, a
+        fresh storyboard manager."""
+        scenario_manager = None
+        if is_xosc:
+            from mmfn_tpu_torch.harness.openscenario import OpenScenarioManager
+
+            # a fresh manager a repetition over the shared parsed config (the
+            # fired state and the actors live on the manager)
+            scenario_manager = OpenScenarioManager(xcfg)
         triggers = None
-        if cfg.get("scenarios"):
+        if not is_xosc and cfg.get("scenarios"):
             from mmfn_tpu_torch.harness.scenarios import (
                 parse_scenario_file, sample_scenarios, scan_route_for_scenarios)
 
@@ -258,8 +305,12 @@ def main(argv=None) -> int:
             rough_map, config.trajectory, int(cfg.get("background_traffic", 0)),
             config.index, signals)
         max_ticks = cfg.get("max_ticks")
-        # the route XML's own <weather> overrides the `weather:` knob
-        weather = getattr(config, "weather", None) or cfg.get("weather") or "ClearNoon"
+        # the .xosc EnvironmentAction's preset, else the route XML's own
+        # <weather>, which overrides the `weather:` knob
+        if is_xosc and xcfg.weather:
+            weather = xcfg.weather
+        else:
+            weather = getattr(config, "weather", None) or cfg.get("weather") or "ClearNoon"
         # weather_animation: the sun moves over game time (srunner
         # weather_sim.py analog); a number compresses time (60: one route
         # minute a sun hour), true is real time
@@ -278,7 +329,7 @@ def main(argv=None) -> int:
             world_kwargs["compact_sensors"] = True
         return dict(triggers=triggers, rough_map=rough_map, signals=signals,
                     background=background, world_kwargs=world_kwargs,
-                    weather_sim=weather_sim,
+                    scenario_manager=scenario_manager, weather_sim=weather_sim,
                     max_ticks=None if max_ticks is None else int(max_ticks))
 
     shared = {}
@@ -327,10 +378,25 @@ def main(argv=None) -> int:
                     print(f"{bc.OKCYAN}collect offset {lateral:+.1f} m (rep {rep}){bc.ENDC}")
             print(f"{bc.OKCYAN}route {config.route_id} "
                   f"({config.index + 1}/{indexer.total}){bc.ENDC}")
+            # record: DIR — the route's ground truth for post-hoc metrics,
+            # named like the reference's recorder logs
+            # (leaderboard_evaluator.py:319-320); sequential routes only
+            recorder = None
+            if cfg.get("record"):
+                from mmfn_tpu_torch.harness.recording import EpisodeRecorder
+
+                recorder = EpisodeRecorder()
             try:
-                records = [runner.run_route(agent, config, map_xodr, **route_kwargs(config))]
+                records = [runner.run_route(agent, config, map_xodr, recorder=recorder,
+                                            **route_kwargs(config))]
             finally:
                 agent.destroy()
+            if recorder is not None:
+                os.makedirs(cfg["record"], exist_ok=True)
+                rec_path = os.path.join(cfg["record"],
+                                        f"{config.route_id}_rep{config.index}.json")
+                recorder.save(rec_path)
+                print(f"recording written to {rec_path}")
         for config, record in zip(configs, records):
             statistics.save_record(record, config.index, endpoint)
             print(format_route_record(record, title=f"route {config.route_id}"))

@@ -17,10 +17,10 @@ from numpy's ``default_rng(seed)`` in the same order, so its frames are the
 JAX package's bit for bit; with ``compact_sensors`` it ships the same
 ``world_state`` frames for the device world (``harness/device_world.py``).
 The runner takes the JAX runner's background traffic
-(``harness/npc_traffic.py``), ``WeatherSim`` and the experts' fault-removal
-request, in the JAX runner's order. Two of its hooks wait with ROADMAP
-queue 1 item 2 and are left out: a pre-built (OpenSCENARIO) scenario
-manager and the episode recorder.
+(``harness/npc_traffic.py``), ``WeatherSim``, the experts' fault-removal
+request, a pre-built scenario manager (``harness/openscenario.py``'s
+``OpenScenarioManager``, whose storyboard may stop the episode) and the
+episode recorder (``harness/recording.py``), in the JAX runner's order.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from mmfn_tpu_torch.control.planner import GPS_SCALE
 from mmfn_tpu_torch.harness.criteria import (
     AgentBlockedCriterion, Criterion, OutsideRouteLanesCriterion, RouteCompletionCriterion,
     RouteDeviationCriterion, RunningRedLightCriterion, RunningStopCriterion,
-    route_timeout_seconds)
+    route_timeout_seconds, subdivide_lane_ribbon)
 from mmfn_tpu_torch.harness.events import TrafficEvent, TrafficEventType
 from mmfn_tpu_torch.harness.route import RouteConfig, interpolate_trajectory, route_length
 from mmfn_tpu_torch.harness.scenarios import ScenarioManagerLite, check_collision
@@ -400,6 +400,8 @@ class ClosedLoopRunner:
                   signals=None,
                   background=None,
                   world_kwargs: Optional[dict] = None,
+                  scenario_manager=None,
+                  recorder=None,
                   weather_sim=None) -> RouteRecord:
         """triggers: optional ScenarioTrigger list -> adversarial events are
         activated along the route and collisions are scored.
@@ -412,6 +414,14 @@ class ClosedLoopRunner:
         lane-following vehicles (the reference's 120-300 background actors,
         route_scenario.py:444-475) are stepped each tick, shown to the expert,
         and scored on collision.
+        scenario_manager: optional pre-built manager (e.g.
+        harness.openscenario.OpenScenarioManager) used instead of the
+        trigger-list ScenarioManagerLite; if it exposes ``stop_triggered()``
+        (OpenSCENARIO storyboard stop trigger) the episode ends there.
+        recorder: optional harness.recording.EpisodeRecorder -> every tick's
+        ground truth (actors, control, lights, collisions) plus the criteria
+        summary is captured for post-hoc metrics (the srunner
+        ``--record`` + metrics_manager.py analog).
         weather_sim: optional harness.weather.WeatherSim -> the sun position
         evolves over game time and the live preset drives the fake world's
         sensor synthesis (srunner WeatherBehavior, weather_sim.py:91-152).
@@ -421,7 +431,9 @@ class ClosedLoopRunner:
         gen = self.drive(agent, config, opendrive_str, max_ticks=max_ticks,
                          triggers=triggers, rough_map=rough_map,
                          signals=signals, background=background,
-                         world_kwargs=world_kwargs, weather_sim=weather_sim)
+                         world_kwargs=world_kwargs,
+                         scenario_manager=scenario_manager,
+                         recorder=recorder, weather_sim=weather_sim)
         try:
             game_time = next(gen)
             while True:
@@ -440,6 +452,8 @@ class ClosedLoopRunner:
               signals=None,
               background=None,
               world_kwargs: Optional[dict] = None,
+              scenario_manager=None,
+              recorder=None,
               weather_sim=None):
         """Generator form of :meth:`run_route` (same arguments): writes the
         tick's sensor frames into ``agent.sensor_interface``, yields the game
@@ -473,9 +487,38 @@ class ClosedLoopRunner:
         timeout = route_timeout_seconds(length)
         max_ticks = max_ticks or int(timeout / DT)
 
-        scenario_mgr = ScenarioManagerLite(triggers or [])
+        if scenario_manager is not None and triggers:
+            raise ValueError("pass either scenario_manager or triggers, not "
+                             "both — the manager replaces the trigger list")
+        scenario_mgr = scenario_manager or ScenarioManagerLite(triggers or [])
+        # auto-wire world context into a manager left unwired: 'signal'
+        # conditions need the SignalSet, alongRoute 'distance' conditions
+        # need the ego route polyline
+        if getattr(scenario_mgr, "signals", "absent") is None:
+            scenario_mgr.signals = signals
+        if getattr(scenario_mgr, "route_xy", "absent") is None:
+            scenario_mgr.route_xy = route_xy
+        # the world-service atoms (ChangeWeather, TimeOfDayComparison) reach
+        # the fake world / WeatherSim the same way
+        if getattr(scenario_mgr, "world", "absent") is None:
+            scenario_mgr.world = world
+        if getattr(scenario_mgr, "weather_sim", "absent") is None:
+            scenario_mgr.weather_sim = weather_sim
+        # lane-topology atoms (next-intersection distance, rightmost lane)
+        # query the vectorized map the way srunner queries the Waypoint API
+        if getattr(scenario_mgr, "rough_map", "absent") is None:
+            scenario_mgr.rough_map = rough_map
+        # OSC OffroadCondition needs the drivable-lane ribbon (same geometry
+        # as OutsideRouteLanesCriterion)
+        if getattr(scenario_mgr, "lane_ribbon", "absent") is None \
+                and rough_map is not None:
+            scenario_mgr.lane_ribbon = subdivide_lane_ribbon(
+                [lane.nodes for lane in rough_map.lanes],
+                [lane.widths for lane in rough_map.lanes])
         collision_events: List[TrafficEvent] = []
         collided_ids = set()
+        if recorder is not None:
+            recorder.start(opendrive_str, DT, config.route_id, signals=signals)
 
         self.statistics.set_route(config.route_id, config.index)
         t_start = time.time()
@@ -487,6 +530,7 @@ class ClosedLoopRunner:
                 world.set_weather(weather_sim.update(game_time),
                                   weather_sim.sun_altitude_deg)
             scenario_actors = scenario_mgr.tick(np.array([world.x, world.y]), DT)
+            n_scenario = len(scenario_actors)
             if background is not None:
                 # an actor hidden from traffic (visible_traffic false) is no
                 # obstacle to the NPCs
@@ -506,13 +550,14 @@ class ClosedLoopRunner:
             if signals is not None:
                 red_light, stop_sign = signals.gating(
                     np.array([world.x, world.y]), world.yaw, game_time)
+            light_states = (signals.light_states(game_time)
+                            if signals is not None else [])
             frame["privileged"] = (world.frame, {
                 "ego": (world.x, world.y, world.yaw, world.v),
                 "actors": scenario_actors,
                 "red_light": red_light,
                 "stop_sign": stop_sign,
-                "light_states": (signals.light_states(game_time)
-                                 if signals is not None else []),
+                "light_states": light_states,
             })
             for tag, (f, payload) in frame.items():
                 if tag not in agent.sensor_interface._sensors:
@@ -540,12 +585,18 @@ class ClosedLoopRunner:
                         np.array([world.x, world.y]), radius=15.0)
                 if signals is not None:
                     signals.force_green(game_time, duration=10.0)
+            if recorder is not None:
+                recorder.record_tick(game_time, time.time() - t_start, world,
+                                     scenario_actors, n_scenario, control,
+                                     light_states)
             world.tick(control)
             game_time += DT
             position = (world.x, world.y)
             hit = check_collision(np.asarray(position), world.yaw, scenario_actors)
             if hit is not None and hit.actor_id not in collided_ids:
                 collided_ids.add(hit.actor_id)
+                if recorder is not None:
+                    recorder.record_collision(hit.actor_id)
                 etype = (TrafficEventType.COLLISION_PEDESTRIAN if hit.kind == "walker"
                          else TrafficEventType.COLLISION_VEHICLE)
                 collision_events.append(TrafficEvent(
@@ -553,6 +604,9 @@ class ClosedLoopRunner:
             for c in criteria:
                 c.update(position, abs(world.v), game_time)
             if criteria[0].completed:
+                break
+            if getattr(scenario_mgr, "stop_triggered", None) is not None \
+                    and scenario_mgr.stop_triggered():
                 break
             if any(getattr(c, "triggered", False) for c in criteria[1:]):
                 break
@@ -579,4 +633,6 @@ class ClosedLoopRunner:
             duration_time_system=time.time() - t_start,
             duration_time_game=game_time,
             timed_out=timed_out, failure=failure)
+        if recorder is not None:
+            recorder.finish(criteria, record)
         return record

@@ -4,7 +4,8 @@ weather (srunner weather_sim.py:33-108 analog).
 The port's own copy of the JAX package's ``harness/weather.py``: the preset
 names, the quantizer that maps a route file's ``<weather>`` parameters onto
 them, and ``WeatherSim``, the sun over game time, whose preset the runner
-feeds to the fake world each tick (``KinematicWorld.set_weather``).
+feeds to the fake world each tick (``KinematicWorld.set_weather``); with
+``animation=False`` the sun stands still while the clock runs on.
 """
 
 from __future__ import annotations
@@ -84,6 +85,8 @@ class WeatherSim:
     """
 
     preset: str = "ClearNoon"
+    animation: bool = True           # False: the sun stands still (the
+                                     # atoms' TimeOfDay animation="false")
     start_hour: float = 11.0         # local solar time at route start
     day_of_year: int = 172           # late June: long day
     latitude_deg: float = 40.0
@@ -95,7 +98,8 @@ class WeatherSim:
     sun_altitude_deg: float = field(init=False, default=90.0)
     sun_azimuth_deg: float = field(init=False, default=180.0)
     # live weather-clock hour [0, 24) — the srunner blackboard "Datetime"
-    # analog
+    # analog read by the TimeOfDayComparison atom (and advanced even with
+    # animation off, where only the sun position stays frozen)
     clock_hour: float = field(init=False, default=11.0)
 
     def __post_init__(self):
@@ -123,11 +127,14 @@ class WeatherSim:
         the preset name in effect."""
         self.clock_hour = (self.start_hour
                            + game_time * self.time_scale / 3600.0) % 24.0
-        self.sun_altitude_deg, self.sun_azimuth_deg = \
-            self._solar_position(self.clock_hour)
+        if self.animation:
+            self.sun_altitude_deg, self.sun_azimuth_deg = \
+                self._solar_position(self.clock_hour)
         return self.current_preset()
 
     def current_preset(self) -> str:
+        if not self.animation:
+            return self.preset
         if self.sun_altitude_deg > self.SUNSET_ALTITUDE_DEG:
             suffix = "Noon"
         elif self.sun_altitude_deg > self.NIGHT_ALTITUDE_DEG:

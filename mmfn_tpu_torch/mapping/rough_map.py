@@ -20,10 +20,11 @@ The companion OpenDRIVE -> .rmap generator lives in native/rough_map_node.cpp
 (our own C++ tool, built by scripts/build_native.sh); ``build_rmap`` runs it
 as a program.
 
-The port's own copy of the JAX package's ``mapping/rough_map.py``. The
-lane-position helpers there (``locate_on_lane``, ``resolve_lane_position``
-and the rest) serve OpenSCENARIO and are not ported yet; ``vectorize_xodr``
-builds the port's own birdview (``mapping/birdview.py``).
+The port's own copy of the JAX package's ``mapping/rough_map.py``, with its
+lane-position helpers (``locate_on_lane``, ``resolve_lane_position``,
+``resolve_road_position``, ``road_position_of``), which resolve OpenSCENARIO
+``LanePosition`` / ``RoadPosition`` through the rmap v3 ids;
+``vectorize_xodr`` builds the port's own birdview (``mapping/birdview.py``).
 """
 
 from __future__ import annotations
@@ -184,6 +185,200 @@ class RoughMap:
         n = min(n, max_lanes)
         out[:n] = lanes[:n]
         return out, n
+
+
+def locate_on_lane(rough_map: "RoughMap", x: float, y: float
+                   ) -> Tuple[str, int, float, float]:
+    """Inverse of :func:`resolve_lane_position`: nearest driving lane to a
+    CARLA world point -> (road_id, lane_id, s, distance). Projects the point
+    onto every v3 lane polyline segment and interpolates the arclength.
+    Raises KeyError when the map carries no v3 ids."""
+    p = np.array([x, y], dtype=np.float64)
+    best = None
+    for lane in rough_map.lanes:
+        if lane.node_s is None or len(lane.node_s) < 2:
+            continue
+        a = lane.nodes[:-1, :2]
+        ab = lane.nodes[1:, :2] - a
+        denom = np.einsum("ij,ij->i", ab, ab)
+        denom[denom == 0.0] = 1e-12
+        t = np.clip(np.einsum("ij,ij->i", p - a, ab) / denom, 0.0, 1.0)
+        proj = a + t[:, None] * ab
+        d = np.linalg.norm(proj - p, axis=1)
+        k = int(np.argmin(d))
+        s = float(lane.node_s[k] + t[k] * (lane.node_s[k + 1] - lane.node_s[k]))
+        if best is None or d[k] < best[3]:
+            best = (lane.road_id, lane.lane_id, s, float(d[k]))
+    if best is None:
+        raise KeyError("map has no rmap v3 lanes (ids/arclength missing)")
+    return best
+
+
+def resolve_lane_position(rough_map: "RoughMap", road_id: str, lane_id: int,
+                          s: float, offset: float = 0.0
+                          ) -> Tuple[float, float, float]:
+    """OpenSCENARIO LanePosition (roadId, laneId, s, offset) -> (x, y, yaw)
+    in the CARLA world frame, through the rmap v3 ids/arclength columns.
+
+    The lane-center point at road arclength ``s`` is interpolated along the
+    matching lane polyline; ``yaw`` is the direction of travel there;
+    ``offset`` displaces laterally toward the road's +t axis (left of the
+    reference line), which in the y-flipped CARLA frame is right-of-travel
+    for right-side lanes (id < 0) and left-of-travel for left-side lanes —
+    the same convention CARLA's own map API applies.
+
+    Raises KeyError when the map has no v3 ids or no such lane, ValueError
+    when ``s`` is outside the road.
+    """
+    chunks = [l for l in rough_map.lanes
+              if l.road_id == str(road_id) and l.lane_id == int(lane_id)
+              and l.node_s is not None and len(l.node_s) >= 2]
+    if not chunks:
+        raise KeyError(f"no lane road={road_id} lane={lane_id} in the map "
+                       f"(rmap v3 ids required for LanePosition)")
+    best = None  # (clamped distance outside the chunk's s range, chunk)
+    for lane in chunks:
+        lo, hi = float(np.min(lane.node_s)), float(np.max(lane.node_s))
+        gap = max(lo - s, s - hi, 0.0)
+        if best is None or gap < best[0]:
+            best = (gap, lane)
+    gap, lane = best
+    if gap > 1e-6:
+        raise ValueError(f"s={s} outside road {road_id} lane {lane_id} "
+                         f"(off by {gap:.2f} m)")
+    # node_s runs descending for left-side lanes (polylines are emitted in
+    # direction of travel); np.interp needs ascending xp
+    s_arr, xy = lane.node_s, lane.nodes[:, :2]
+    if s_arr[0] > s_arr[-1]:
+        s_arr, xy = s_arr[::-1], xy[::-1]
+    x = float(np.interp(s, s_arr, xy[:, 0]))
+    y = float(np.interp(s, s_arr, xy[:, 1]))
+    # direction of travel at s, from the polyline in emitted (travel) order
+    travel_s = lane.node_s
+    k = int(np.clip(np.searchsorted(s_arr, s), 1, len(s_arr) - 1))
+    seg = xy[k] - xy[k - 1]               # ascending-s direction
+    if travel_s[0] > travel_s[-1]:
+        seg = -seg                        # travel runs against s
+    yaw = math.atan2(float(seg[1]), float(seg[0]))
+    if offset:
+        # +t axis in the y-flipped frame: rotate travel -90 deg for right
+        # lanes (travel == +s), +90 deg for left lanes (travel == -s)
+        n = (np.array([seg[1], -seg[0]]) if lane_id < 0
+             else np.array([-seg[1], seg[0]]))
+        n = n / (np.linalg.norm(n) + 1e-12)
+        x += float(n[0]) * offset
+        y += float(n[1]) * offset
+    return x, y, yaw
+
+
+def _lane_at_s(rough_map: "RoughMap", road_id: str, s: float,
+               prefer_inner: bool = True):
+    """Pick the lane chunk of ``road_id`` covering arclength ``s``.
+    ``prefer_inner`` favors the smallest |lane_id| (adjacent to the road
+    reference line), ties to the right side (id < 0). Raises like
+    :func:`resolve_lane_position`."""
+    chunks = [l for l in rough_map.lanes
+              if l.road_id == str(road_id)
+              and l.node_s is not None and len(l.node_s) >= 2]
+    if not chunks:
+        raise KeyError(f"no road {road_id} in the map (rmap v3 ids required)")
+    best = None
+    for lane in chunks:
+        lo, hi = float(np.min(lane.node_s)), float(np.max(lane.node_s))
+        gap = max(lo - s, s - hi, 0.0)
+        key = (gap > 1e-6, abs(lane.lane_id) if prefer_inner else 0,
+               lane.lane_id > 0, gap)
+        if best is None or key < best[0]:
+            best = (key, lane)
+    key, lane = best
+    if key[0]:
+        raise ValueError(f"s={s} outside road {road_id}")
+    return lane
+
+
+def _lane_frame_at(lane: RoughLane, s: float):
+    """(center_xy, s_dir unit vector of increasing s, lane width) at ``s``."""
+    if lane.widths is None:
+        raise KeyError("rmap v2 lane widths required for road (s, t) "
+                       "resolution — rebuild the map with the current tool")
+    s_arr, xy, widths = lane.node_s, lane.nodes[:, :2], lane.widths
+    if s_arr[0] > s_arr[-1]:
+        s_arr, xy, widths = s_arr[::-1], xy[::-1], widths[::-1]
+    cx = float(np.interp(s, s_arr, xy[:, 0]))
+    cy = float(np.interp(s, s_arr, xy[:, 1]))
+    w = float(np.interp(s, s_arr, widths))
+    k = int(np.clip(np.searchsorted(s_arr, s), 1, len(s_arr) - 1))
+    seg = xy[k] - xy[k - 1]
+    seg = seg / (np.linalg.norm(seg) + 1e-12)
+    return np.array([cx, cy]), seg, w
+
+
+def _t_axis(s_dir: np.ndarray) -> np.ndarray:
+    """The road's +t axis in the y-flipped CARLA frame: OpenDRIVE's +t
+    (left of the reference line) maps to rotate(+s, -90 deg) here — the
+    same handedness :func:`resolve_lane_position` applies per lane side."""
+    return np.array([s_dir[1], -s_dir[0]])
+
+
+def _t_of_lane_center(rough_map: "RoughMap", road_id: str, lane_id: int,
+                      s: float) -> float:
+    """t-coordinate of a lane's centerline at ``s``: the signed cumulative
+    width of the lanes between it and the reference line plus half its own.
+    Missing intermediate lanes (non-driving lanes the vectorizer skips)
+    fall back to this lane's width."""
+    side = {}
+    for lane in rough_map.lanes:
+        if lane.road_id != str(road_id) or lane.node_s is None \
+                or np.sign(lane.lane_id) != np.sign(lane_id):
+            continue
+        lo, hi = float(np.min(lane.node_s)), float(np.max(lane.node_s))
+        if lo - 1e-6 <= s <= hi + 1e-6 and lane.widths is not None:
+            sa, wd = lane.node_s, lane.widths
+            if sa[0] > sa[-1]:
+                sa, wd = sa[::-1], wd[::-1]
+            side[abs(lane.lane_id)] = float(np.interp(s, sa, wd))
+    own = side.get(abs(lane_id), 3.5)
+    total = sum(side.get(k, own) for k in range(1, abs(lane_id))) + own / 2.0
+    return float(np.sign(lane_id)) * total
+
+
+def resolve_road_position(rough_map: "RoughMap", road_id: str, s: float,
+                          t: float = 0.0) -> Tuple[float, float, float]:
+    """OpenSCENARIO RoadPosition (roadId, s, t) -> (x, y, yaw) in the CARLA
+    world frame. The road reference line is reconstructed from the innermost
+    emitted lane's centerline and width columns (rmap v2/v3): its center sits
+    at t = sign(id) * (cumulative inner widths + w/2), so the reference line
+    is that center displaced back to t = 0 along the road's t-axis. ``yaw``
+    is the direction of increasing ``s`` (OSC's road-relative default).
+    Reference conversion: srunner/tools/openscenario_parser.py:548-550
+    (via the CARLA map API, which this environment has no server for)."""
+    lane = _lane_at_s(rough_map, road_id, s, prefer_inner=True)
+    center, s_dir, _ = _lane_frame_at(lane, s)
+    t_center = _t_of_lane_center(rough_map, str(road_id), lane.lane_id, s)
+    n_t = _t_axis(s_dir)
+    p = center + n_t * (t - t_center)
+    yaw = math.atan2(float(s_dir[1]), float(s_dir[0]))
+    return float(p[0]), float(p[1]), yaw
+
+
+def road_position_of(rough_map: "RoughMap", x: float, y: float
+                     ) -> Tuple[str, float, float]:
+    """Inverse of :func:`resolve_road_position`: world point -> road-frame
+    (road_id, s, t) via the nearest lane (the srunner RelativeRoadPosition
+    base: CARLA get_waypoint + the entity's own road coordinates)."""
+    road_id, lane_id, s, _ = locate_on_lane(rough_map, x, y)
+    # long lanes split into multiple chunks sharing (road_id, lane_id):
+    # pick the one whose arclength range covers s (the first match may sit
+    # hundreds of meters away, and _lane_frame_at clamps to chunk ends)
+    cands = [l for l in rough_map.lanes
+             if l.road_id == road_id and l.lane_id == lane_id
+             and l.node_s is not None and len(l.node_s) >= 2]
+    lane = min(cands, key=lambda l: max(float(np.min(l.node_s)) - s,
+                                        s - float(np.max(l.node_s)), 0.0))
+    center, s_dir, _ = _lane_frame_at(lane, s)
+    t_center = _t_of_lane_center(rough_map, road_id, lane_id, s)
+    lateral = float(_t_axis(s_dir) @ (np.array([x, y]) - center))
+    return road_id, s, t_center + lateral
 
 
 # --------------------------------------------------------------------------- #

@@ -17,9 +17,12 @@ fake world, the scoring core, the map, the birdview and the phase0 CLI.
   equality. ``fill_poly`` of a polygon that leaves the image is held on the
   image's inner rows and columns (its docstring says why).
 - CLI: the port's phase0 writes the same checkpoint records as the JAX CLI
-  for ``agent.type=npc``, serves an MMFN on ``device=cpu``, and refuses each
-  unported option with its ROADMAP item (the collection options are held
-  against the JAX CLI in tests/test_torch_collect.py).
+  for ``agent.type=npc``, serves an MMFN on ``device=cpu``, and refuses
+  ``simulator: carla`` (no CARLA server) and ``agent.fleet_devices`` > 1
+  (its ROADMAP item); the collection options are held against the JAX CLI
+  in tests/test_torch_collect.py, ``.xosc`` routes and ``record`` in
+  tests/test_torch_scenarios.py, ``agent.type=remote`` in
+  tests/test_torch_remote.py.
 
 The map tool is ``native/rough_map_node.cpp``, built with g++ into this
 module's own temporary directory (not the shared ``native/build/``).
@@ -411,12 +414,12 @@ def test_phase0_serves_an_mmfn_on_the_cpu(tool, tmp_path):
     assert records[0]["meta"]["duration_game"] == pytest.approx(0.3)
 
 
-@pytest.mark.parametrize("override, item", [
-    ("simulator=carla", "item 2"), ("routes=x.xosc", "item 2"), ("record=recs", "item 2"),
-    ("agent.type=remote", "item 2"), ("agent.fleet_devices=2", "item 4"),
+@pytest.mark.parametrize("override, match", [
+    ("simulator=carla", "the CARLA glue .* needs a CARLA server"),
+    ("agent.fleet_devices=2", "ROADMAP queue 1 item 4"),
 ], ids=lambda v: v.split("=")[0] if "=" in v else v)
-def test_phase0_refuses_unported_options(tmp_path, override, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+def test_phase0_refuses_unported_options(tmp_path, override, match):
+    with pytest.raises(NotImplementedError, match=match):
         phase0.main(["--config", EVAL_YAML, "resume=false",
                      "checkpoint=" + str(tmp_path / "x.json"), override])
     assert not (tmp_path / "x.json").exists()

@@ -152,9 +152,95 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(m for m in new if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'mmfn_tpu', 'cv2', 'PIL'))\n"
         "assert not bad, bad\n"
-        "print(len([m for m in new if m.startswith('mmfn_tpu_torch')]))\n")
+        "print(' '.join(sorted(m for m in new if m.startswith('mmfn_tpu_torch'))))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip()) >= 20
+    imported = set(proc.stdout.split())
+    assert len(imported) >= 20
+    # every module of the harness, the metric copies and the CLIs among them
+    missing = {"mmfn_tpu_torch.harness." + m for m in HARNESS_MODULES} - imported
+    assert not missing, sorted(missing)
+
+
+HARNESS_MODULES = (
+    "actor_controls", "atoms", "openscenario", "recording", "metrics_log", "metrics_run",
+    "scenario_run", "watchdog", "agents.remote", "metric_examples.comfort",
+    "metric_examples.criteria_filter", "metric_examples.distance_between_vehicles",
+    "metric_examples.distance_to_lane_center")
+
+
+def _remote_stack_entry(tmp):
+    """A RemoteAgent here, and ``python -m mmfn_tpu_torch.harness.agents.remote``
+    run on a thread of this interpreter (runpy), answering 5 ticks."""
+    return (
+        "import os, runpy, threading, time, warnings\n"
+        "import numpy as np\n"
+        "from mmfn_tpu_torch.harness.agents.remote import RemoteAgent\n"
+        f"sock = {os.path.join(tmp, 'stack.sock')!r}\n"
+        "os.environ['MMFN_BRIDGE_SOCKET'] = sock\n"
+        "warnings.simplefilter('ignore', RuntimeWarning)\n"
+        "stack = threading.Thread(target=runpy.run_module, daemon=True, args=(\n"
+        "    'mmfn_tpu_torch.harness.agents.remote',), kwargs={'run_name': '__main__'})\n"
+        "stack.start()\n"
+        "agent = RemoteAgent({'socket': sock, 'stepping': True})\n"
+        "agent.set_global_plan([({'lat': 0.0, 'lon': 0.0, 'z': 0.0}, 4),\n"
+        "                       ({'lat': 0.001, 'lon': 0.0, 'z': 0.0}, 4)],\n"
+        "                      [((0.0, 0.0), 4), ((111.0, 0.0), 4)])\n"
+        "for spec in agent.sensors():\n"
+        "    agent.sensor_interface.register_sensor(spec['id'])\n"
+        "for t in range(5):\n"
+        "    agent.sensor_interface.update_sensor('gps', np.zeros(3), t)\n"
+        "    agent.sensor_interface.update_sensor('imu', np.zeros(7), t)\n"
+        "    agent.sensor_interface.update_sensor('speed', {'speed': 1.0}, t)\n"
+        "    control = agent(0.05 * t)\n"
+        "    while t == 0 and not agent.step_mode_possible:   # the first control\n"
+        "        time.sleep(0.01)\n"
+        "agent.destroy()\n"
+        "stack.join(10)\n"
+        "assert not stack.is_alive() and control.throttle == 0.7, control\n")
+
+
+def _metrics_cli_entry(tmp):
+    """A recording made here, then ``python -m mmfn_tpu_torch.harness.metrics_run``
+    (runpy) with the port's comfort metric over it."""
+    from mmfn_tpu_torch.harness.phase0 import FALLBACK_XODR
+
+    return (
+        "import runpy, sys\n"
+        "from mmfn_tpu_torch.harness.agents.trivial import NpcAgent\n"
+        "from mmfn_tpu_torch.harness.recording import EpisodeRecorder\n"
+        "from mmfn_tpu_torch.harness.replay import ClosedLoopRunner\n"
+        "from mmfn_tpu_torch.harness.route import RouteConfig\n"
+        "rec = EpisodeRecorder()\n"
+        "ClosedLoopRunner().run_route(NpcAgent(), RouteConfig(route_id='0', town='T',\n"
+        f"    trajectory=[(0.0, 1.75, 0.0), (60.0, 1.75, 0.0)]), {FALLBACK_XODR!r},\n"
+        "    max_ticks=20, recorder=rec, world_kwargs={'lidar_points': 100})\n"
+        f"rec.save({os.path.join(tmp, 'episode.json')!r})\n"
+        "sys.argv = ['metrics_run', '--no-map', '--log',\n"
+        f"    {os.path.join(tmp, 'episode.json')!r}, '--out', {tmp!r}, '--metric',\n"
+        "    'mmfn_tpu_torch/harness/metric_examples/comfort.py']\n"
+        "try:\n"
+        "    runpy.run_module('mmfn_tpu_torch.harness.metrics_run', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"assert open({os.path.join(tmp, 'Comfort.json')!r}).read()\n")
+
+
+@pytest.mark.parametrize("entry", [_remote_stack_entry, _metrics_cli_entry],
+                         ids=["remote_stack", "metrics_cli"])
+def test_entry_runs_without_torch(tmp_path, entry):
+    """The remote stack and the metrics CLI run in a fresh interpreter
+    without importing torch (a torch import costs seconds a process)."""
+    code = entry(str(tmp_path)) + (
+        "import sys\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('torch', 'jax', 'jaxlib', 'flax', 'mmfn_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == "ok"
