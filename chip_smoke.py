@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero before the last line:
   1. build both CUDA kernels from mmfn_tpu_torch/csrc (nvcc, in parallel);
   2. BEV histogram kernel == its plain PyTorch version, exactly, with
      clusters of 8 and of 16 blocks per cloud, at 1 x 65,536 f16 (serving),
-     8 x 65,536 f32 (bench) and 8 x 65,536 f16 points, on bin edges, on
+     8 x 65,536 f32 (bench), 8 x 65,536 f16 and 128 x 65,536 f32 (the
+     bench's device-side ceiling) points, on bin edges, on
      clouds with no valid rows, at N not a multiple of 256, at N = 5 and
      N = 0, and on a cloud with all 65,536 points in one cell (1.0 there, 0
      elsewhere);
@@ -44,21 +45,22 @@ Phases, in order; any failure exits non-zero before the last line:
   7. time each kernel at its main-path shapes (CUDA events, after warm-up;
      the attention in the projection layout, also at TransFuser's shapes;
      the BEV histogram with clusters of 8 and 16, interleaved, and as the
-     wrapper picks it, also at TransFuser's 1 x 65,536 f32) beside its plain
-     version, SDPA for attention, and its bounds on the H100;
+     wrapper picks it, also at TransFuser's 1 x 65,536 f32 and the bench's
+     128 x 65,536 f32) beside its plain version, SDPA for attention, and its
+     bounds on the H100;
   8. the scored closed loop through the port's phase0 CLI
      (``mmfn_tpu_torch.harness.phase0.main``, in process) on the cross town
      (data/maps/fake_town_cross.xodr, its scenario triggers and traffic
      lights, the birdview camera drawn without cv2), serving full-width
      MMFN-rad (attn_impl "pallas", host_bev off, random weights from seed 0):
-     one agent on route 0 of data/routes/benchmark_cross.xml for 150 ticks,
+     one agent on route 0 of data/routes/benchmark_cross.xml for 100 ticks,
      synchronous and with ``agent.async_dispatch``, then ``repetitions=2
-     fleet=8`` (8 routes in one fleet) for 50 ticks, lockstep and
+     fleet=8`` (8 routes in one fleet) for 40 ticks, lockstep and
      pipelined. The map tool (native/build/rough_map_node) is built first by
      scripts/build_native.sh when missing; a failed build fails the run.
      Launch counters set to 0 just before and read just after each run;
      every route runs to the tick cap, with a forward on every tick after
-     the two warm-up ticks (148 a single agent; 48 batched forwards a fleet,
+     the two warm-up ticks (98 a single agent; 38 batched forwards a fleet,
      each steering all 8 agents); every forward tick of the single agent and
      every batched forward of the fleet: 1 BEV and 32 attention launches;
      every route record: a status, no agent crash and a finite driving
@@ -73,9 +75,9 @@ Phases, in order; any failure exits non-zero before the last line:
      expert, each in its own process and all at once (no vehicle collision,
      a route score above 50); full-width MMFN-rad (attn_impl "pallas",
      random weights from seed 0) driving cut_in_with_controller.xosc
-     through the phase0 CLI in process with ``record`` and 150 ticks (no
-     agent crash, 148 forward ticks of 1 BEV and 32 attention launches, a
-     recording of 150 frames; tick ms, device ops and busy ms per forward
+     through the phase0 CLI in process with ``record`` and 100 ticks (no
+     agent crash, 98 forward ticks of 1 BEV and 32 attention launches, a
+     recording of 100 frames; tick ms, device ops and busy ms per forward
      tick, the storyboard's and the recorder's host ms a tick); the metrics
      CLI (``python -m mmfn_tpu_torch.harness.metrics_run``, its own process)
      with each of the four metric copies over that recording (exit 0, each
@@ -104,7 +106,7 @@ Phases, in order; any failure exits non-zero before the last line:
      zero payloads finite; a profile (device busy, ops, idle share, the
      synthesis' share of busy) and the peak memory. Then phase 8 again with
      ``agent.device_world=true`` (compact world frames; one warm-up tick;
-     100 and 40 ticks),
+     60 and 30 ticks),
      and 128 ``MMFNAgent(device_world=True)`` on one pipeline in
      ``FleetRunner`` on a straight road, pipelined and lockstep, 4 warm-up
      and 20 timed ticks: every route to its cap, one batched forward of 1
@@ -137,7 +139,16 @@ Phases, in order; any failure exits non-zero before the last line:
      samples/s by epoch, the validation loss by epoch, the served tick
      median (``data_collect``, ``data_preprocess``, ``data_train``,
      ``data_serve`` and, after training, ``data_path_summary`` beside the
-     synthetic-data f32 rate);
+     synthetic-data f32 rate). The trained best_model.pth is kept as
+     ``<root>/mmfn_rad/best_model.pth`` for:
+  11b. the benchmark runner (``python -m mmfn_tpu_torch.harness.benchmark_run``'s
+     ``main`` in process; each leg a phase0 process on the card): both
+     towns, ClearNoon, agents rad (that checkpoint) and expert, 6 s of wall
+     a route, ``--jobs 2``. Every row of TABLE.md has a driving score, the
+     rad legs load the checkpoint; a second run prints "already complete"
+     for every leg and launches no process; ``--aggregate-only`` rewrites
+     TABLE.md byte for byte. Printed: the table, each leg's seconds, each
+     process's peak card memory (nvidia-smi, polled each second);
   12. train full-width MMFN-rad (GlobalConfig defaults, dropouts 0.1) at batch
      24 from 96 synthetic samples in the GPU data cache (``DeviceDataset``,
      no map column): f32 (3 warm-up steps, then 5 epochs of 4 steps, one host
@@ -155,7 +166,27 @@ Phases, in order; any failure exits non-zero before the last line:
      (CILRS on its control loss; finite losses, every parameter moved, the
      last 3 steps timed), then validate TransFuser on 2 batches through the
      fused attention (32 launches a forward, within rtol 1e-4 of the plain
-     attention's loss).
+     attention's loss);
+  14. ``mmfn_tpu_torch.bench.main`` in process, full width, its iteration
+     and tick counts cut (BENCH_CUTS): one JSON line with bench.py's keys,
+     all non-null, ``pallas_ok`` true, ``device`` the H100; kernel 1 once
+     a pipeline step (the launches of ``pallas_ok``'s check counted apart);
+     the peak memory (the batch-96 bf16 step);
+  15. ``mmfn_tpu_torch.bench_loop.main``: the soak (sync, pipelined, the
+     per-array transport, which bins on the card) at 60 ticks, then
+     ``--fleet 8 --pipelined`` at 40;
+  16. ``torch.export`` of full-width MMFN-rad under "pallas", on the card and
+     on the CPU, each saved and loaded and served on the card at batches 1
+     and 8: 32 kernel-2 launches a forward, waypoints within rtol 1e-4 /
+     atol 2e-3 of the eager forward, both timed; the host cost of one
+     attention call through the custom operator and through the direct
+     launch;
+  17. introspection at full width: 32 attention maps of (2, 4, T, T) with
+     rows summing to 1 within 1e-5 on the plain path, none under "pallas";
+  18. phase2 with ``pretrained_resnet34/18`` pointing at locally made
+     torchvision-keyed files, 2 steps of full-width MMFN-rad at batch 24:
+     the grafted tensors equal the files', the LiDAR conv1 kept its init,
+     training starts from the grafted weights.
 
 Output: JSON lines per phase (the summary has the device ops per batch-1
 forward; ``baseline_summary`` the baselines' tick latency and device ops
@@ -163,11 +194,15 @@ per forward; ``closed_loop_summary`` the closed loop's numbers, host world and d
 world; ``scenarios_summary`` the storyboard's, the metrics', the scenario
 runner's and the remote agent's; ``device_world_summary`` the device world's;
 ``train_summary`` the training rates, peak memory, idle share and device
-ops per step; ``timing`` the seconds of each phase), then a ``kernels`` line whose launches count the served
+ops per step; ``bench``, ``bench_loop``, ``benchmark``, ``export`` and
+``slice9_summary`` the bench's line and the rest of phases 11b-18;
+``timing`` the seconds of each phase), then a ``kernels`` line whose launches count the served
 paths, MMFN-rad's requests, the baselines' ticks, the closed loop's four
 phase0 runs, the storyboard and the scenario runner, the device world's
-forwards, phase0 runs and fleets, and the data path's validation and served
-run, the
+forwards, phase0 runs and fleets, the data path's validation and served
+run, the bench, bench_loop, the exported artifacts, introspection and the
+pretrained run (not the benchmark runner's legs, which are processes of
+their own), the
 GPU's name and power limit as nvidia-smi gives them, and
 last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -182,6 +217,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -366,6 +402,7 @@ def check_bev(lidar, rng, dev):
                                         for _ in range(3)]).astype(np.float16),
         "fleet_8x65536_f16": np.stack([padded(lidar_sweep(rng, 65536), 65536)
                                        for _ in range(8)]).astype(np.float16),
+        "device_side_128x65536_f32": rng.uniform(-30, 30, (128, 65536, 4)).astype(np.float32),
         "hot_cell_1x65536_f32": padded(np.tile(np.float32(HOT_CELL), (65536, 1)), 65536)[None],
         "five_points_1x5_f32": padded(lidar_sweep(rng, 5) / 8, 5)[None],
         "empty_2x0_f32": np.zeros((2, 0, 4), np.float32),
@@ -488,9 +525,14 @@ def time_kernels(lidar, attention, dev, rng):
 
     rows = {}
     for name, b, dtype in (("serving", 1, torch.float16), ("bench", 8, torch.float32),
-                           ("fleet", 8, torch.float16), ("transfuser", 1, torch.float32)):
-        pts = torch.from_numpy(np.stack([padded(lidar_sweep(rng, 60000), 65536)
-                                         for _ in range(b)])).to(dev, dtype)
+                           ("fleet", 8, torch.float16), ("transfuser", 1, torch.float32),
+                           ("device_side", 128, torch.float32)):
+        if name == "device_side":       # the bench's inputs: uniform over +-30 m, all valid
+            pts = torch.from_numpy(rng.uniform(-30, 30, (b, 65536, 4)).astype(np.float32)
+                                   ).to(dev)
+        else:
+            pts = torch.from_numpy(np.stack([padded(lidar_sweep(rng, 60000), 65536)
+                                             for _ in range(b)])).to(dev, dtype)
         nbytes = pts.numel() * pts.element_size() + b * 256 * 256 * 2 * 4
         ops = 12 * b * 65536 + 2 * b * 256 * 256 * 2
         # each cluster size twice, interleaved 8, 16, 16, 8, so drift falls on both
@@ -502,7 +544,8 @@ def time_kernels(lidar, attention, dev, rng):
                                "ms": cuda_ms(lambda: lidar.bev_histogram(pts)),
                                "ms_by_cluster": {str(c): statistics.fmean(t)
                                                  for c, t in by_cluster.items()},
-                               "plain_ms": cuda_ms(lambda: lidar.bev_histogram_plain(pts)),
+                               "plain_ms": cuda_ms(lambda: lidar.bev_histogram_plain(pts),
+                                                   *((3, 1) if b > 8 else ())),
                                "library_ms": None, **bound(nbytes, ops)}
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     shapes = [(b, t, d) for b in (1, 8) for t, d in STAGE_SHAPES]
@@ -699,9 +742,9 @@ def serve_baselines(cfg, dev, ops, rng, gpu):
 # the scored closed loop, through the port's phase0 CLI
 # --------------------------------------------------------------------------- #
 
-CLOSED_LOOP_TICKS = 150           # one route, one agent; sync, then async
-FLEET, FLEET_TICKS = 8, 50        # 4 routes x 2 repetitions in one fleet
-DW_CLOSED_LOOP_TICKS, DW_FLEET_TICKS = 100, 40   # the same with the device world
+CLOSED_LOOP_TICKS = 100           # one route, one agent; sync, then async
+FLEET, FLEET_TICKS = 8, 40        # 4 routes x 2 repetitions in one fleet
+DW_CLOSED_LOOP_TICKS, DW_FLEET_TICKS = 60, 30    # the same with the device world
 PROFILED_TICKS = 5                # forward ticks profiled in each single-agent run
 PROFILE_FROM = 40                 # ... from this forward tick on
 MAP_TOOL = os.path.join("native", "build", "rough_map_node")
@@ -1060,7 +1103,7 @@ def closed_loop(cfg, ops, gpu, device_world=False):
 
 XOSC_DIR = os.path.join("data", "scenarios")
 STORY_XOSC = os.path.join(XOSC_DIR, "cut_in_with_controller.xosc")
-STORY_TICKS = 150                 # full-width MMFN-rad in the storyboard
+STORY_TICKS = 100                 # full-width MMFN-rad in the storyboard
 REMOTE_TICKS = 100
 SCENARIO_RUN_SECONDS = 20         # scenario_run's wall budget for its one repetition
 # eval.yaml's straight road (map: null), the world of the shipped episodes
@@ -1967,12 +2010,13 @@ def serve_trained(phase0, ops, tmp, logdir):
     return row
 
 
-def data_path(ops, gpu, dev):
+def data_path(ops, gpu, dev, model_root):
     """Collect on the cross town with the port's expert (phase0, background
     traffic, both pilots), preprocess with the port's phase1 (4 workers),
     train full-width MMFN-rad on the result with the port's phase2, and serve
     its best_model.pth with the port's phase0: the reference's own pipeline,
-    end to end, with the checks of each step."""
+    end to end, with the checks of each step. The checkpoint is kept as
+    ``<model_root>/mmfn_rad/best_model.pth`` for the benchmark runner."""
     from mmfn_tpu_torch.harness import phase0
     from mmfn_tpu_torch.train import phase2
 
@@ -2018,6 +2062,9 @@ def data_path(ops, gpu, dev):
         laps("train")
         served = serve_trained(phase0, ops, tmp, logdir)
         emit("data_serve", gpu=gpu, **served)
+        os.makedirs(os.path.join(model_root, "mmfn_rad"))
+        shutil.copy(os.path.join(logdir, "best_model.pth"),
+                    os.path.join(model_root, "mmfn_rad", "best_model.pth"))
         laps("serve")
     launches = {name: trained["launches"][name] + served["launches"][name]
                 for name in ops.KERNELS}
@@ -2425,6 +2472,457 @@ def run_training(cfg, dev, ops):
     return summary
 
 
+# --------------------------------------------------------------------------- #
+# the benchmark runner, the bench, export, introspection, pretrained backbones
+# --------------------------------------------------------------------------- #
+
+BENCHMARK_WALL = 6                # seconds of wall a route in the runner's legs
+BENCHMARK_EXTRA = []              # CPU rehearsal: ["--device", "cpu"]
+BENCH_CUTS = {"ITERS": 30, "TRAIN_ITERS": 10, "PEAK_ITERS": 5, "DISK_SAMPLES": 96,
+              "FLEET_TICKS": 30, "DEVICE_ITERS": 5}
+BENCH_LOOP_WARMUP = 8             # bench_loop's warm-up ticks (24 uncut)
+SOAK_TICKS, SOAK_FLEET_TICKS = 60, 40
+EXPORT_TOL = dict(rtol=1e-4, atol=2e-3)
+OP_CALLS = 500                    # host-timed calls of each attention route
+
+
+class GpuMemory:
+    """The card's memory while the block lasts, polled from nvidia-smi every
+    second: the peak of the total in use, of one process's share and of
+    the number of processes holding a context (MiB)."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = {"total_mib": 0, "one_process_mib": 0, "processes": 0}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+
+    def _query(self, what, fields):
+        out = subprocess.run(["nvidia-smi", f"--query-{what}={fields}",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30)
+        return [line.split(",")[-1].strip() for line in out.stdout.strip().splitlines()]
+
+    def _poll(self):
+        while not self._stop.wait(1.0):
+            apps = [int(m) for m in self._query("compute-apps", "pid,used_memory") if m.isdigit()]
+            total = [int(m) for m in self._query("gpu", "memory.used") if m.isdigit()]
+            for key, value in (("total_mib", sum(total)), ("one_process_mib", max(apps or [0])),
+                               ("processes", len(apps))):
+                self.peak[key] = max(self.peak[key], value)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def benchmark_phase(ops, gpu, model_root):
+    """The port's benchmark runner (``python -m mmfn_tpu_torch.harness.
+    benchmark_run``'s ``main``, in process; each leg a phase0 process) over
+    both towns, ClearNoon, agents rad (the checkpoint the data path trained,
+    ``<model_root>/mmfn_rad/best_model.pth``) and expert, BENCHMARK_WALL s of
+    wall a route, two legs at once. Every row of TABLE.md has a driving
+    score, the rad legs load the checkpoint; a second run finds every leg
+    complete and launches no process; ``--aggregate-only`` rewrites TABLE.md
+    byte for byte."""
+    from mmfn_tpu_torch.harness import benchmark_run
+
+    laps = Laps()
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--agents", "rad,expert", "--weathers", "ClearNoon", "--out", out,
+                "--model-root", model_root, "--max-wall", str(BENCHMARK_WALL),
+                "--jobs", "2"] + BENCHMARK_EXTRA
+        text = io.StringIO()
+        with GpuMemory() as memory, contextlib.redirect_stdout(text):
+            require(benchmark_run.main(argv) == 0, "the benchmark runner exits 0")
+        first = text.getvalue()
+        print(first, end="", flush=True)
+        laps("run")
+        with open(os.path.join(out, "TABLE.md"), "rb") as f:
+            table = f.read()
+        rows = [r for r in table.decode().splitlines() if r.startswith("| ") and "---" not in r][1:]
+        require(len(rows) == 4, f"4 legs in TABLE.md: {table.decode()}")
+        scores = {}
+        for r in rows:
+            cells = [c.strip() for c in r.strip("|").split("|")]
+            require(cells[3] != "_no data_" and np.isfinite(float(cells[3])),
+                    f"a driving score in every row: {r}")
+            scores[f"{cells[0]}_{cells[1]}"] = float(cells[3])
+        ckpt = os.path.join(model_root, "mmfn_rad", "best_model.pth")
+        for town in ("TownCross", "TownLoop"):
+            with open(os.path.join(out, f"rad_{town}_ClearNoon.log")) as f:
+                log = f.read()
+            require(f"loaded checkpoint {ckpt}" in log, f"the rad leg on {town} loads {ckpt}")
+        legs_s = {m.group(1).replace(" ", "_"): float(m.group(2)) for m in re.finditer(
+            r"\[benchmark\] (\S+ \S+) ClearNoon: exit 0 \[(\d+)s\]", first)}
+
+        launched = []
+        real_run = benchmark_run.subprocess.run
+        benchmark_run.subprocess.run = lambda *a, **k: launched.append(a)
+        text = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(text):
+                require(benchmark_run.main(argv) == 0, "the resumed runner exits 0")
+        finally:
+            benchmark_run.subprocess.run = real_run
+        require(not launched and text.getvalue().count("already complete") == 4,
+                f"the second run finds every leg complete:\n{text.getvalue()}")
+        os.remove(os.path.join(out, "TABLE.md"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            require(benchmark_run.main(argv + ["--aggregate-only"]) == 0, "aggregate-only")
+        with open(os.path.join(out, "TABLE.md"), "rb") as f:
+            require(f.read() == table, "--aggregate-only rewrites TABLE.md byte for byte")
+        laps("resume_and_aggregate")
+    summary = {"gpu": gpu, "driving_scores": scores, "leg_seconds": legs_s,
+               "card_memory_peak": memory.peak, "seconds": laps.seconds,
+               "wall_per_route_s": BENCHMARK_WALL, "table": table.decode()}
+    emit("benchmark", **summary)
+    return summary
+
+
+@contextlib.contextmanager
+def cut(module, values):
+    """``module``'s constants set to ``values`` while the block lasts."""
+    saved = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def bench_phase(ops, gpu):
+    """``mmfn_tpu_torch.bench.main`` in process at BENCH_CUTS (iteration and
+    tick counts; full width): its JSON line has the JAX bench's keys, all
+    non-null, ``pallas_ok`` true and ``device`` the H100. The launches of its
+    kernel check (``pallas_ok``) are not counted."""
+    from mmfn_tpu_torch import bench, bench_loop
+
+    checks = {name: 0 for name in ops.KERNELS}
+    check_kernels = bench.check_kernels
+
+    def counted_apart(*args):
+        before = {name: k.launches for name, k in ops.KERNELS.items()}
+        try:
+            return check_kernels(*args)
+        finally:
+            for name, k in ops.KERNELS.items():
+                checks[name] += k.launches - before[name]
+
+    text = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with cut(bench, {**BENCH_CUTS, "check_kernels": counted_apart}), \
+            cut(bench_loop, {"WARMUP_TICKS": BENCH_LOOP_WARMUP}), contextlib.redirect_stdout(text):
+        require(bench.main([]) == 0, "the bench exits 0")
+    seconds = time.perf_counter() - t0
+    launches = {name: k.launches - checks[name] for name, k in ops.KERNELS.items()}
+    line = json.loads(text.getvalue().strip().splitlines()[-1])
+    with open("BENCH_r05.json") as f:
+        keys = set(json.load(f)["parsed"])
+    require(set(line) == keys, f"the bench's keys are bench.py's: {sorted(set(line) ^ keys)}")
+    require(all(v is not None for v in line.values()), f"every key non-null: {line}")
+    require(line["pallas_ok"] is True, "pallas_ok: both kernels agree with their plain versions")
+    require(line["device"] == torch.cuda.get_device_name(0) and "H100" in line["device"],
+            f"device names the H100: {line['device']}")
+    iters, dev_iters = BENCH_CUTS["ITERS"], BENCH_CUTS["DEVICE_ITERS"]
+    want_bev = 2 * (3 + 3 * iters) + 3 + 3 * dev_iters      # + one a device-world fleet tick
+    require(launches["bev_hist"] >= want_bev and launches["fused_attention"] == 0,
+            f"kernel 1 once a pipeline step (plain attention): {launches}, want >= {want_bev}")
+    require(checks == {"bev_hist": 1, "fused_attention": 4}, f"pallas_ok's launches {checks}")
+    emit("bench", gpu=gpu, line=line, seconds=seconds, launches=launches,
+         check_launches=checks, peak_bytes=torch.cuda.max_memory_allocated(),
+         cuts=BENCH_CUTS, fleet_warmup_ticks=BENCH_LOOP_WARMUP)
+    torch.cuda.empty_cache()
+    return {"line": line, "seconds": seconds, "launches": launches}
+
+
+def bench_loop_phase(ops, gpu):
+    """``mmfn_tpu_torch.bench_loop.main`` in process: the soak (sync,
+    pipelined, and the per-array transport, which bins on the card) at
+    SOAK_TICKS ticks, then ``--fleet 8 --pipelined`` at SOAK_FLEET_TICKS."""
+    from mmfn_tpu_torch import bench_loop
+
+    lines, launches = [], {name: 0 for name in ops.KERNELS}
+    t0 = time.perf_counter()
+    for argv in (["--ticks", str(SOAK_TICKS)],
+                 ["--fleet", "8", "--pipelined", "--ticks", str(SOAK_FLEET_TICKS)]):
+        text = io.StringIO()
+        ops.reset_launch_counts()
+        with cut(bench_loop, {"WARMUP_TICKS": BENCH_LOOP_WARMUP}), \
+                contextlib.redirect_stdout(text):
+            require(bench_loop.main(argv) == 0, f"bench_loop {argv} exits 0")
+        for name, k in ops.KERNELS.items():
+            launches[name] += k.launches
+        lines.append(json.loads(text.getvalue().strip().splitlines()[-1]))
+        torch.cuda.empty_cache()
+    soak, fleet = lines
+    for mode in ("sync", "pipelined", "sync_per_array_transport"):
+        require(soak[mode]["ticks_per_sec"] > 0 and soak[mode]["route_status"],
+                f"soak {mode}: {soak[mode]}")
+    require(fleet["fleet"] == 8 and fleet["agg_ticks_per_sec"] > 0, f"fleet: {fleet}")
+    require(launches["bev_hist"] > 0, f"the per-array transport bins on the card: {launches}")
+    seconds = time.perf_counter() - t0
+    emit("bench_loop", gpu=gpu, soak=soak, fleet=fleet, launches=launches, seconds=seconds)
+    return {"soak": soak, "fleet": fleet, "launches": launches, "seconds": seconds}
+
+
+def host_us_per_call(fn, n: int) -> float:
+    """Host microseconds to issue one call of ``fn`` (``n`` calls, no sync
+    between them)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def served_ms(fn, reps: int = 20) -> float:
+    """Host-clock median ms of a synchronized call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def export_phase(ops, gpu, dev):
+    """Full-width MMFN-rad (attn_impl "pallas", seeded weights) exported with
+    ``torch.export`` twice, on the card and on the CPU, each saved and
+    loaded, then served on the card at batches 1 and 8: 32 kernel-2 launches
+    a forward (none of kernel 1: the BEV comes in the batch) and the eager
+    forward's waypoints within rtol 1e-4 / atol 2e-3; the exported forward
+    timed against the eager one. Then the host cost of one attention call
+    through the custom op against the direct launch."""
+    from mmfn_tpu_torch.config import GlobalConfig
+    from mmfn_tpu_torch.data.synthetic import synthetic_batch
+    from mmfn_tpu_torch.models import build_model
+    from mmfn_tpu_torch.ops import attention
+    from mmfn_tpu_torch.serving import export_forward, load_exported, save_exported, serving_call
+    from mmfn_tpu_torch.serving.export import model_params
+
+    cfg = GlobalConfig(attn_impl="pallas")
+    model = build_model(cfg, "rad", torch.Generator().manual_seed(SEED), device=dev)
+    params = model_params(model)
+    out = {"gpu": gpu}
+    launches = {name: 0 for name in ops.KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where in (dev.type, "cpu"):
+            src = model if where == dev.type else build_model(
+                cfg, "rad", torch.Generator().manual_seed(SEED), device="cpu")
+            t0 = time.perf_counter()
+            exported = export_forward(src, model_params(src),
+                                      synthetic_batch(2, cfg.max_lanes, seed=SEED, device=where))
+            export_s = time.perf_counter() - t0
+            path = os.path.join(tmp, f"mmfn_rad_{where}.pt2")
+            save_exported(exported, path)
+            loaded = load_exported(path)
+            n_op = sum(str(n.target) == "mmfn.fused_attention.default"
+                       for n in loaded.graph.nodes)
+            require(n_op == 4 * cfg.n_layer, f"{where} artifact: {n_op} kernel-2 nodes")
+            call = serving_call(loaded)
+            row = {"export_s": export_s, "artifact_bytes": os.path.getsize(path)}
+            for b in (1, 8):
+                batch = synthetic_batch(b, cfg.max_lanes, seed=SEED + b, device=dev)
+                ops.reset_launch_counts()
+                served = call(params, batch)
+                torch.cuda.synchronize()
+                got = {name: k.launches for name, k in ops.KERNELS.items()}
+                for name in launches:
+                    launches[name] += got[name]
+                require(got == {"bev_hist": 0, "fused_attention": 32},
+                        f"{where} artifact at batch {b}: 32 kernel-2 launches, {got}")
+                with torch.inference_mode():
+                    eager = model(batch)
+                require(served.shape == (b, 4, 2) and bool(torch.isfinite(served).all()),
+                        f"served waypoints {tuple(served.shape)}")
+                np.testing.assert_allclose(served.cpu().numpy(), eager.cpu().numpy(),
+                                           **EXPORT_TOL)
+                row[f"max_abs_vs_eager_b{b}"] = float((served - eager).abs().max())
+                ops.reset_launch_counts()
+
+                def eager_call(batch=batch):
+                    with torch.inference_mode():
+                        return model(batch)
+
+                row[f"served_ms_b{b}"] = served_ms(lambda batch=batch: call(params, batch))
+                row[f"eager_ms_b{b}"] = served_ms(eager_call)
+                for name, k in ops.KERNELS.items():
+                    launches[name] += k.launches
+            out[f"exported_on_{where}"] = row
+            emit("export", artifact=where, **row)
+            del exported, loaded, call, src
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    q, k, v = attention_inputs(1, 192, 64, "projection", g, dev)
+    with torch.inference_mode():
+        host = {"direct": [], "op": []}
+        for route in ("direct", "op", "op", "direct"):
+            fn = attention.fused_attention if route == "direct" else attention.fused_attention_op
+            host[route].append(host_us_per_call(lambda fn=fn: fn(q, k, v), OP_CALLS))
+        require(torch.equal(attention.fused_attention(q, k, v),
+                            attention.fused_attention_op(q, k, v)),
+                "both routes launch the same kernel")
+    out["attention_host_us_per_call"] = {r: statistics.fmean(t) for r, t in host.items()}
+    emit("attention_op_overhead", gpu=gpu, shape=[1, 4, 192, 64], calls=OP_CALLS,
+         host_us_per_call=out["attention_host_us_per_call"])
+    del model, params
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def introspection_phase(ops, gpu, dev):
+    """``utils/introspection.py`` on full-width MMFN-rad at batch 2: on the
+    plain attention path 32 maps of (2, 4, T, T), T in {192, 256}, rows
+    summing to 1 within 1e-5; under "pallas" no maps (the kernel forms
+    none) and 32 kernel-2 launches."""
+    from mmfn_tpu_torch.config import GlobalConfig
+    from mmfn_tpu_torch.data.synthetic import synthetic_batch
+    from mmfn_tpu_torch.models import build_model
+    from mmfn_tpu_torch.utils.introspection import (attention_rollout, attention_weights,
+                                                    forward_with_intermediates)
+
+    model = build_model(GlobalConfig(attn_impl="pallas"), "rad",
+                        torch.Generator().manual_seed(SEED), device=dev)
+    batch = synthetic_batch(2, seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    with plain_attention(model):
+        _, tree = forward_with_intermediates(model, batch)
+    seconds = time.perf_counter() - t0
+    maps = attention_weights(tree)
+    require(len(maps) == 32, f"32 attention maps, got {len(maps)}")
+    worst = 0.0
+    for key, att in maps.items():
+        t = 256 if "transformer4" in key else 192
+        require(att.shape == (2, 4, t, t), f"{key}: {att.shape}")
+        worst = max(worst, float(np.abs(att.sum(-1) - 1.0).max()))
+    require(worst <= 1e-5, f"attention rows sum to 1 within 1e-5: {worst}")
+    rollout = attention_rollout(tree)
+    require(rollout.shape == (256, 512) and bool(np.isfinite(rollout).all()),
+            f"rollout {rollout.shape}")
+    ops.reset_launch_counts()
+    _, fused_tree = forward_with_intermediates(model, batch)
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    require(not attention_weights(fused_tree) and launches["fused_attention"] == 32,
+            f"no maps under pallas, 32 kernel-2 launches: {launches}")
+    emit("introspection", gpu=gpu, maps=len(maps), worst_row_sum_err=worst,
+         rollout_shape=list(rollout.shape), plain_forward_s=seconds, launches=launches)
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def torchvision_keyed(net, seed):
+    """A torchvision-keyed state dict of ``net``'s shapes (plus ``fc``), drawn
+    from ``seed``: the stand-in for an ImageNet file."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in net.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(1000)
+        elif k.endswith("running_var"):
+            sd[k] = torch.rand(v.shape, generator=g) + 0.5
+        else:
+            sd[k] = torch.randn(v.shape, generator=g)
+    sd["fc.weight"], sd["fc.bias"] = torch.randn(1000, 512, generator=g), torch.zeros(1000)
+    return sd
+
+
+def pretrained_phase(ops, gpu, dev):
+    """phase2 with ``pretrained_resnet34/18`` pointing at locally made
+    torchvision-keyed files: 2 steps of full-width MMFN-rad at batch 24.
+    The grafted tensors equal the files', the LiDAR conv1 kept its init, and
+    training starts from the grafted weights."""
+    import pickle
+
+    from mmfn_tpu_torch.data.synthetic import synthetic_samples
+    from mmfn_tpu_torch.models.resnet import resnet18, resnet34
+    from mmfn_tpu_torch.train import Engine, phase2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {}
+        for name, net, seed in (("resnet34", resnet34(3), 34), ("resnet18", resnet18(3), 18)):
+            files[name] = os.path.join(tmp, f"{name}.pth")
+            torch.save(torchvision_keyed(net, seed), files[name])
+        for split, n, seed in (("pro_train_fmmfn", 2 * TRAIN_BATCH, 1),
+                               ("pro_eval_fmmfn", TRAIN_BATCH, 2)):
+            os.makedirs(os.path.join(tmp, split))
+            for i, s in enumerate(synthetic_samples(n, seed=seed)):
+                with open(os.path.join(tmp, split, f"{i:04d}.pkl"), "wb") as f:
+                    pickle.dump(s, f)
+        seen = {}
+        graft, fit = phase2.load_imagenet_backbones, Engine.fit
+
+        def graft_seen(sd, **kw):
+            seen["before"] = {k: v.cpu().clone() for k, v in sd.items()}
+            seen["after"] = graft(sd, **kw)
+            return seen["after"]
+
+        def fit_seen(self, state, *a, **kw):
+            seen["at_fit"] = {k: v.cpu().clone() for k, v in state.model.state_dict().items()}
+            return fit(self, state, *a, **kw)
+
+        phase2.load_imagenet_backbones, Engine.fit = graft_seen, fit_seen
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            require(phase2.main([
+                "--config", os.path.join("run_steps", "config", "train.yaml"),
+                f"data_folder={os.path.join(tmp, 'mmfn')}",
+                f"logdir={os.path.join(tmp, 'log')}", "train_agent.entry_point=mmfn_rad",
+                f"batch_size={TRAIN_BATCH}", "epochs=1", "val_every=1", "wandb_mode=disabled",
+                f"pretrained_resnet34={files['resnet34']}",
+                f"pretrained_resnet18={files['resnet18']}"] + DATA_DEVICE) == 0,
+                "phase2 with pretrained files exits 0")
+        finally:
+            phase2.load_imagenet_backbones, Engine.fit = graft, fit
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(tmp, "log", "recent.log")) as f:
+            log = json.load(f)
+        r34 = torch.load(files["resnet34"], weights_only=True)
+        r18 = torch.load(files["resnet18"], weights_only=True)
+    after = {k: v.cpu() for k, v in seen["after"].items()}
+    before, at_fit = seen["before"], seen["at_fit"]
+    grafted = 0
+    for key, value in after.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        for prefix, src, skip in (("encoder.image_encoder.features.", r34, ()),
+                                  ("encoder.img_map_encoder.features.", r34, ()),
+                                  ("encoder.lidar_encoder._model.", r18, ("conv1.",))):
+            if key.startswith(prefix):
+                tv = key[len(prefix):]
+                if tv.startswith(skip):
+                    require(torch.equal(value, before[key]), f"{key} kept its init")
+                else:
+                    require(torch.equal(value, src[tv]), f"{key} == the file's {tv}")
+                    grafted += 1
+        require(torch.equal(at_fit[key], value), f"training starts from the grafted {key}")
+    require(grafted > 200, f"{grafted} grafted tensors")
+    require(log["iter"] == 2 and bool(np.isfinite(log["train_loss"]).all()),
+            f"2 finite steps: {log}")
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    emit("pretrained", gpu=gpu, grafted_tensors=grafted, seconds=seconds,
+         train_loss=log["train_loss"], val_loss=log["val_loss"], launches=launches)
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA GPU", file=sys.stderr)
@@ -2478,24 +2976,40 @@ def main() -> int:
     world = device_world(cfg, dev, ops, rng, gpu, lidar, attention, rows)
     laps("device_world")
     torch.cuda.empty_cache()
-    data = data_path(ops, gpu, dev)
-    laps("data_path")
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as model_root:
+        data = data_path(ops, gpu, dev, model_root)
+        laps("data_path")
+        torch.cuda.empty_cache()
+        runner = benchmark_phase(ops, gpu, model_root)
+        laps("benchmark")
     training = run_training(cfg, dev, ops)
     laps("training")
     emit("data_path_summary", **data, training_f32_samples_per_s_synthetic=training[
         "f32_samples_per_s"])
+    benched = bench_phase(ops, gpu)
+    laps("bench")
+    soaked = bench_loop_phase(ops, gpu)
+    laps("bench_loop")
+    exported = export_phase(ops, gpu, dev)
+    laps("export")
+    looked = introspection_phase(ops, gpu, dev)
+    laps("introspection")
+    grafted = pretrained_phase(ops, gpu, dev)
+    laps("pretrained")
 
     # the launches of the served paths: MMFN-rad's requests, the baselines'
     # ticks, the closed loop's four phase0 runs, the storyboard and the
     # scenario runner, the device world's forwards, phase0 runs and fleets,
-    # and the data path's validation and serving
+    # the data path's validation and serving, the bench's pipeline steps and
+    # fleets, bench_loop's soaks and fleet, the exported artifacts' forwards,
+    # introspection's fused forward and the pretrained run (the benchmark
+    # runner's legs launch in their own processes and are not counted here)
     for b in baselines.values():
         for name, n in b["launches"].items():
             launches[name] += n
-    for name, n in (list(loop["launches"].items()) + list(scenes["launches"].items())
-                    + list(world["launches"].items()) + list(data["launches"].items())):
-        launches[name] += n
+    for phase in (loop, scenes, world, data, benched, soaked, exported, looked, grafted):
+        for name, n in phase["launches"].items():
+            launches[name] += n
 
     def per_forward_ms(b, shapes):
         """Kernel 2's times summed over one forward: n_layer launches a stage."""
@@ -2529,6 +3043,11 @@ def main() -> int:
          device_ops_per_forward={k: b["device_ops_per_forward"] for k, b in baselines.items()},
          transfuser_attention_per_forward=per_forward_ms(1, TRANSFUSER_SHAPES),
          transfuser_bev_ms=rows["bev_transfuser"]["ms"])
+    emit("slice9_summary", gpu=gpu, bench=benched["line"],
+         bench_loop={"soak": soaked["soak"], "fleet": soaked["fleet"]},
+         benchmark={k: runner[k] for k in ("driving_scores", "leg_seconds", "card_memory_peak")},
+         export={k: exported[k] for k in ("exported_on_cuda", "exported_on_cpu",
+                                          "attention_host_us_per_call")})
     emit("timing", gpu=gpu, seconds=laps.seconds, total_seconds=laps.total())
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -13,6 +13,7 @@ _LAZY = {
     "BaselineAgent": "baseline",
     "MMFNAgent": "e2e",
     "HostCopy": "pipeline",
+    "HumanAgent": "human",
     "TorchPipeline": "pipeline",
     "RemoteAgent": "remote",
 }

@@ -105,6 +105,5 @@ class FusionTransformer(nn.Module):
         tokens = torch.cat([g.permute(0, 2, 3, 1).reshape(b, h * w, c) for g in grids], dim=1)
         vel = self.vel_emb(velocity[:, None].to(tokens.dtype))       # (B, C)
         x = self.drop(self.pos_emb + tokens + vel[:, None, :])
-        x = self.ln_f(self.blocks(x))
-        return [x[:, i * h * w:(i + 1) * h * w].reshape(b, h, w, c).permute(0, 3, 1, 2)
-                for i in range(self.n_groups)]
+        x = self.ln_f(self.blocks(x)).view(b, self.n_groups, h, w, c)
+        return [x[:, i].permute(0, 3, 1, 2) for i in range(self.n_groups)]

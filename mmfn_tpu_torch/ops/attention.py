@@ -6,7 +6,9 @@ tokens (192, or 256 at rad stage 4) with head dims 16..128. On a CUDA tensor
 ``csrc/attention.cu``, which never writes the (T, T) matrix to device memory;
 on a CPU tensor it takes the plain PyTorch version :func:`attention_plain`.
 Inference only: the kernel has no backward, and training takes the plain
-path in ``models/gpt.py``.
+path in ``models/gpt.py``. For ``torch.export`` the kernel is also the
+custom operator ``mmfn::fused_attention`` (:func:`fused_attention_op`), which
+an exported graph holds and which launches the same kernel on the card.
 
 Layout contract: q, k and v may be strided (B, H, T, D) views whose last
 dimension is contiguous, such as ``y.view(b, t, h, d).transpose(1, 2)`` of a
@@ -76,27 +78,22 @@ def _kernel_strides(q: torch.Tensor, k: torch.Tensor,
     return tuple(strides)
 
 
+_NO_BACKWARD = ("fused_attention: the CUDA kernel has no backward, but autograd is on "
+                "and q, k or v requires grad; run it under torch.inference_mode() or "
+                "torch.no_grad() (training takes the plain attention path)")
+
+
 def _refuse_autograd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise RuntimeError when autograd would need the kernel's gradient: the
     kernel has no backward, so its output would silently carry none. Needs
     no GPU."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError("fused_attention: the CUDA kernel has no backward, but "
-                           "autograd is on and q, k or v requires grad; run it under "
-                           "torch.inference_mode() or torch.no_grad() (training "
-                           "takes the plain attention path)")
+        raise RuntimeError(_NO_BACKWARD)
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v for (B, H, T, D) f32 tensors, strided as the
-    module docstring allows. On the GPU the result is the transposed view of a
-    contiguous (B, T, H, D) buffer; it raises there when autograd would need
-    a gradient through it."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"q: expected a CUDA tensor, got {q.device}")
-    _refuse_autograd(q, k, v)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/attention.cu`` on CUDA tensors; the transposed view of a
+    contiguous (B, T, H, D) buffer."""
     q_s, k_s, v_s = _kernel_strides(q, k, v)
     b, h, t, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -105,3 +102,54 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
                          _STRIDES(*q_s), _STRIDES(*k_s), _STRIDES(*v_s),
                          b, h, t, d, 1.0 / math.sqrt(d), stream_handle(q.device))
     return out.transpose(1, 2)
+
+
+@torch.library.custom_op("mmfn::fused_attention", mutates_args=())
+def fused_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Kernel 2 as an operator that ``torch.export`` keeps in its graph. Only
+    a CPU or a CUDA tensor has a kernel here."""
+    raise ValueError(f"q: expected a CUDA or CPU tensor, got {q.device}")
+
+
+@fused_attention_op.register_kernel("cuda")
+def _(q, k, v):
+    return _launch(q, k, v)
+
+
+@fused_attention_op.register_kernel("cpu")
+def _(q, k, v):
+    # the plain version, laid out as the kernel lays out its result
+    return attention_plain(q, k, v).transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@fused_attention_op.register_fake
+def _(q, k, v):
+    b, h, t, d = q.shape
+    return q.new_empty((b, t, h, d)).transpose(1, 2)
+
+
+def _no_backward(ctx, grad):
+    raise RuntimeError(_NO_BACKWARD)
+
+
+fused_attention_op.register_autograd(_no_backward)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v for (B, H, T, D) f32 tensors, strided as the
+    module docstring allows. On the GPU the result is the transposed view of a
+    contiguous (B, T, H, D) buffer; it raises there when autograd would need
+    a gradient through it.
+
+    While ``torch.export`` traces, the call goes through the operator
+    :func:`fused_attention_op` (``torch.ops.mmfn.fused_attention``), so the
+    exported graph holds kernel 2; an eager call on a CUDA tensor launches
+    the kernel directly, without the operator's dispatch."""
+    if torch.compiler.is_exporting():
+        return fused_attention_op(q, k, v)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"q: expected a CUDA tensor, got {q.device}")
+    _refuse_autograd(q, k, v)
+    return _launch(q, k, v)

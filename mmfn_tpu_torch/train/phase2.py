@@ -12,8 +12,10 @@ only the img variant stages the map raster.
 
 One key the JAX CLI lacks: ``device`` (default: the CUDA device; the run
 raises when there is none, and ``device=cpu`` trains on the CPU).
-``multi_host``, ``model_parallel`` > 1 and ``pretrained_resnet34/18`` are not
-ported yet and raise.
+``pretrained_resnet34`` / ``pretrained_resnet18`` point at raw torchvision
+``.pth`` files grafted into the ResNets before training or resuming
+(``utils/weights.py:load_imagenet_backbones``; CILRS takes the ResNet18).
+``multi_host`` and ``model_parallel`` > 1 are not ported yet and raise.
 
 Usage:
     python -m mmfn_tpu_torch.train.phase2 --config run_steps/config/train.yaml \\
@@ -37,6 +39,7 @@ from mmfn_tpu_torch.train.engine import Engine
 from mmfn_tpu_torch.utils.cli import load_config
 from mmfn_tpu_torch.utils.logging import MetricsLogger, bcolors as bc
 from mmfn_tpu_torch.utils.seeding import seed_everything
+from mmfn_tpu_torch.utils.weights import load_imagenet_backbones
 
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "run_steps", "config", "train.yaml")
@@ -49,10 +52,6 @@ def _refuse_unported(cfg) -> None:
     if int(cfg.get("model_parallel", 1)) > 1:
         raise NotImplementedError("model_parallel > 1: tensor parallelism is not ported "
                                   "to mmfn_tpu_torch yet (ROADMAP queue 1 item 4, multi-process)")
-    if cfg.get("pretrained_resnet34") or cfg.get("pretrained_resnet18"):
-        raise NotImplementedError("pretrained_resnet34/18: grafting torchvision ImageNet "
-                                  "weights is not ported yet; it needs torchvision files "
-                                  "that are not in the repo (ROADMAP queue 1 item 5, the tail)")
 
 
 def main(argv=None) -> int:
@@ -84,6 +83,12 @@ def main(argv=None) -> int:
     entry = cfg.get("train_agent", {}).get("entry_point", "mmfn_vec")
     model = get_entry_point(entry)(gconf, generator, device=device)
     print(f"{bc.OKCYAN}model: {entry} (variant {model.variant}) on {device}{bc.ENDC}")
+    if cfg.get("pretrained_resnet34") or cfg.get("pretrained_resnet18"):
+        # the reference's models.resnet*(pretrained=True) warm start
+        model.load_state_dict(load_imagenet_backbones(
+            model.state_dict(), resnet34_path=cfg.get("pretrained_resnet34"),
+            resnet18_path=cfg.get("pretrained_resnet18")))
+        print(f"{bc.OKGREEN}grafted ImageNet backbone weights{bc.ENDC}")
 
     logdir = cfg["logdir"]
     logger = MetricsLogger(logdir, mode=cfg.get("wandb_mode", "auto"), config=dict(cfg))

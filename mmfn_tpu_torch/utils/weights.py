@@ -21,7 +21,8 @@ numpy arrays and returns the port's state_dict. Layout rules:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+import re
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,6 +56,62 @@ def load_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, torch.Ten
     own = model.state_dict()
     sd = {k: v for k, v in sd.items() if k in own or not k.startswith(_MAP_STEM)}
     model.load_state_dict(sd, strict=True)
+
+
+# the ResNets an ImageNet file grafts into: (key pattern, file, skip conv1)
+_GRAFTS = (
+    (re.compile(r"^(.*\.)?(image_encoder|img_map_encoder)\.features\."), "resnet34", False),
+    (re.compile(r"^(.*\.)?lidar_encoder\._model\."), "resnet18", True),
+    (re.compile(r"^encoder\.features\."), "resnet18", False),      # CILRS's image ResNet18
+)
+
+
+def load_imagenet_backbones(state_dict: Mapping[str, torch.Tensor],
+                            resnet34_path: Optional[str] = None,
+                            resnet18_path: Optional[str] = None) -> StateDict:
+    """Graft torchvision ImageNet weights into a model's ResNet encoders.
+
+    The reference builds its camera and map encoders from
+    ``models.resnet34(pretrained=True)`` and its LiDAR encoder from
+    ``models.resnet18(pretrained=True)`` with a freshly initialized 2-channel
+    conv1 (model_img.py:22,58-62). Given raw torchvision ``.pth`` state dicts
+    (torchvision keys: ``conv1``, ``bn1``, ``layerK.J.*``, ``fc``), this
+    returns a copy of ``state_dict`` (the port's keys) with:
+
+    - the ResNet34 in every ``image_encoder.features`` and
+      ``img_map_encoder.features`` (MMFN, AIM, TransFuser);
+    - the ResNet18 in every ``lidar_encoder._model``, conv1 excepted (the
+      2-channel input keeps its init, as the reference's re-made conv);
+    - the ResNet18 in CILRS's ``encoder.features``.
+
+    Only tensors the model owns are replaced (the vec and rad map streams
+    have no stem or layer1; ``fc`` and ``num_batches_tracked`` are never
+    taken), in the model's dtype; the rest is left as it was.
+
+    Deviation from the JAX package's ``load_imagenet_backbones``: that one
+    grafts the ResNet34 file into CILRS's ``image_encoder``, a ResNet18, where
+    only the blocks that fit are copied and the ResNet18 file never reaches
+    it. Here CILRS takes ``resnet18_path``, the network it is. No torchvision
+    import: the files are read with ``torch.load``."""
+    out = {k: v.clone() for k, v in state_dict.items()}
+    files = {"resnet34": resnet34_path, "resnet18": resnet18_path}
+    loaded = {name: load_torch_state_dict(path) for name, path in files.items() if path}
+    for key in state_dict:
+        for pattern, name, skip_conv1 in _GRAFTS:
+            m = pattern.match(key)
+            if m is None or name not in loaded:
+                continue
+            tv_key = key[m.end():]
+            if tv_key.endswith("num_batches_tracked") or (skip_conv1 and tv_key.startswith("conv1.")):
+                break
+            src = loaded[name].get(tv_key)
+            if src is not None:
+                if src.shape != out[key].shape:
+                    raise ValueError(f"{name}: {tv_key} has shape {tuple(src.shape)}, "
+                                     f"the model's {key} {tuple(out[key].shape)}")
+                out[key] = src.to(out[key].dtype).clone()
+            break
+    return out
 
 
 # --------------------------------------------------------------------------- #

@@ -137,7 +137,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "flax", "mmfn_tpu", "cv2", "PIL"), \
+                assert top not in ("jax", "jaxlib", "flax", "mmfn_tpu", "cv2", "PIL",
+                                   "torchvision"), \
                     f"{path}: {name}"
 
 
@@ -150,7 +151,7 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'mmfn_tpu', 'cv2', 'PIL'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'mmfn_tpu', 'cv2', 'PIL', 'torchvision'))\n"
         "assert not bad, bad\n"
         "print(' '.join(sorted(m for m in new if m.startswith('mmfn_tpu_torch'))))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -160,7 +161,8 @@ def test_importing_the_port_loads_no_jax():
     imported = set(proc.stdout.split())
     assert len(imported) >= 20
     # every module of the harness, the metric copies and the CLIs among them
-    missing = {"mmfn_tpu_torch.harness." + m for m in HARNESS_MODULES} - imported
+    missing = ({"mmfn_tpu_torch.harness." + m for m in HARNESS_MODULES}
+               | {"mmfn_tpu_torch." + m for m in TOOL_MODULES}) - imported
     assert not missing, sorted(missing)
 
 
@@ -169,6 +171,12 @@ HARNESS_MODULES = (
     "scenario_run", "watchdog", "agents.remote", "metric_examples.comfort",
     "metric_examples.criteria_filter", "metric_examples.distance_between_vehicles",
     "metric_examples.distance_to_lane_center")
+
+
+TOOL_MODULES = (
+    "bench", "bench_loop", "harness.benchmark_run", "serving", "serving.export",
+    "serving.export_model", "utils.profiling", "utils.introspection", "control.localization",
+    "harness.validation", "harness.game_time", "harness.agents.human")
 
 
 def _remote_stack_entry(tmp):

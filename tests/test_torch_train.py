@@ -439,8 +439,7 @@ def _phase2_twice(logdir, tmp_path, entry="mmfn_rad"):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("multi_host=true", "ROADMAP queue 1 item 4"), ("model_parallel=2", "ROADMAP queue 1 item 4"),
-    ("pretrained_resnet34=/nonexistent.pth", "torchvision")])
+    ("multi_host=true", "ROADMAP queue 1 item 4"), ("model_parallel=2", "ROADMAP queue 1 item 4")])
 def test_phase2_refuses_what_is_not_ported(override, match):
     with pytest.raises(NotImplementedError, match=match):
         phase2.main(["--config", os.path.join(ROOT, "run_steps", "config", "train.yaml"),
