@@ -53,9 +53,9 @@ Phases, in order; any failure exits non-zero before the last line:
      (data/maps/fake_town_cross.xodr, its scenario triggers and traffic
      lights, the birdview camera drawn without cv2), serving full-width
      MMFN-rad (attn_impl "pallas", host_bev off, random weights from seed 0):
-     one agent on route 0 of data/routes/benchmark_cross.xml for 100 ticks,
+     one agent on route 0 of data/routes/benchmark_cross.xml for 70 ticks,
      synchronous and with ``agent.async_dispatch``, then ``repetitions=2
-     fleet=8`` (8 routes in one fleet) for 40 ticks, lockstep and
+     fleet=8`` (8 routes in one fleet) for 30 ticks, lockstep and
      pipelined. The map tool (native/build/rough_map_node) is built first by
      scripts/build_native.sh when missing; a failed build fails the run.
      Launch counters set to 0 just before and read just after each run;
@@ -75,9 +75,9 @@ Phases, in order; any failure exits non-zero before the last line:
      expert, each in its own process and all at once (no vehicle collision,
      a route score above 50); full-width MMFN-rad (attn_impl "pallas",
      random weights from seed 0) driving cut_in_with_controller.xosc
-     through the phase0 CLI in process with ``record`` and 100 ticks (no
+     through the phase0 CLI in process with ``record`` and 70 ticks (no
      agent crash, 98 forward ticks of 1 BEV and 32 attention launches, a
-     recording of 100 frames; tick ms, device ops and busy ms per forward
+     recording of 70 frames; tick ms, device ops and busy ms per forward
      tick, the storyboard's and the recorder's host ms a tick); the metrics
      CLI (``python -m mmfn_tpu_torch.harness.metrics_run``, its own process)
      with each of the four metric copies over that recording (exit 0, each
@@ -85,7 +85,7 @@ Phases, in order; any failure exits non-zero before the last line:
      e2e --junit`` in process (full-width MMFN-vec, plain attention, a 20 s
      wall budget: one testcase with a finite score, 1 BEV launch a forward
      tick); the phase0 CLI with ``agent.type=remote``, the port's stack in
-     its own process and stepping, 100 ticks (every tick after the first
+     its own process and stepping, 70 ticks (every tick after the first
      acknowledged by its seq, the stack's exit code 0; the round trip ms a
      tick and the stack's start);
   10. the device world (``harness/device_world.py``) on the cross town, with
@@ -121,7 +121,7 @@ Phases, in order; any failure exits non-zero before the last line:
      ``agent.type=auto``, 310 ticks), phase1 preprocesses with 4 workers,
      phase2 trains full-width MMFN-rad at batch 24 in f32 for 2 epochs with
      validation through kernel 2, and phase0 serves its best_model.pth on
-     the held-out route for 100 ticks. Checks: every collection record has
+     the held-out route for 70 ticks. Checks: every collection record has
      a status, no agent crash and a finite score; every frame directory of
      each route holds the frames its expert's steps imply; every frame of a
      route decodes and each PNG re-encodes to the same pixels; a pickle per
@@ -186,7 +186,34 @@ Phases, in order; any failure exits non-zero before the last line:
   18. phase2 with ``pretrained_resnet34/18`` pointing at locally made
      torchvision-keyed files, 2 steps of full-width MMFN-rad at batch 24:
      the grafted tensors equal the files', the LiDAR conv1 kept its init,
-     training starts from the grafted weights.
+     training starts from the grafted weights;
+  19. multi-process (``multi_process``): (a) the phase2 CLI under
+     ``torch.distributed.run --nproc_per_node=1`` over NCCL with
+     ``multi_host=true checkpoint_backend=orbax model.attn_impl=pallas``,
+     full-width MMFN-rad at batch 24 for 2 epochs on the data path's pools
+     (kept from phase 11), then resumed from the DCP directory for a third:
+     kernel 2 in every validation forward, ms a step over each epoch beside
+     phase 11's one-process run on the same pools (epochs of a few steps:
+     no rate is compared); (b) two ranks on cuda:0 over gloo (NCCL refuses
+     two ranks on one device), TF32 off:
+     full-width MMFN-rad's DDP step at batch 24 (12 a rank) against the
+     one-process step on the same batch (|loss diff| < 1e-4, parameters
+     within 2.5 lr, BN running statistics within relative 1e-3, and each
+     parameter's gradient, AdamW's exp_avg after the step, within relative
+     L2 ``MP_GRAD_REL``: one AdamW step moves every element by about lr
+     whatever its gradient, so only the gradient shows a missing
+     all-reduce), then model_parallel 2: the eval forward through kernel 2
+     at 2 heads a rank (within 1e-4 of the largest waypoint of the
+     one-process forward) and one step at the same bounds; (c) sharded
+     serving in process, two shards on cuda:0 on two streams:
+     ``TorchPipeline`` at fleets of 8 and 7 and ``DeviceWorldPipeline`` at
+     128 agents, each against the
+     unsharded pipeline (rtol 1e-4 / atol 2e-3; one launch of kernel 1 and
+     32 of kernel 2 a shard), the sharded and unsharded fleet ticks timed,
+     and the phase0 CLI with ``agent.fleet_devices=1`` (one device, the
+     plain path: it checks the CLI's plumbing only). The ranks are this
+     script started again with ``--rank-task``; they report their own
+     launch counts.
 
 Output: JSON lines per phase (the summary has the device ops per batch-1
 forward; ``baseline_summary`` the baselines' tick latency and device ops
@@ -200,8 +227,9 @@ ops per step; ``bench``, ``bench_loop``, ``benchmark``, ``export`` and
 paths, MMFN-rad's requests, the baselines' ticks, the closed loop's four
 phase0 runs, the storyboard and the scenario runner, the device world's
 forwards, phase0 runs and fleets, the data path's validation and served
-run, the bench, bench_loop, the exported artifacts, introspection and the
-pretrained run (not the benchmark runner's legs, which are processes of
+run, the bench, bench_loop, the exported artifacts, introspection, the
+pretrained run and the multi-process phase (its ranks' own counts, and the
+sharded pipelines'; not the benchmark runner's legs, which are processes of
 their own), the
 GPU's name and power limit as nvidia-smi gives them, and
 last
@@ -742,8 +770,8 @@ def serve_baselines(cfg, dev, ops, rng, gpu):
 # the scored closed loop, through the port's phase0 CLI
 # --------------------------------------------------------------------------- #
 
-CLOSED_LOOP_TICKS = 100           # one route, one agent; sync, then async
-FLEET, FLEET_TICKS = 8, 40        # 4 routes x 2 repetitions in one fleet
+CLOSED_LOOP_TICKS = 70            # one route, one agent; sync, then async
+FLEET, FLEET_TICKS = 8, 30        # 4 routes x 2 repetitions in one fleet
 DW_CLOSED_LOOP_TICKS, DW_FLEET_TICKS = 60, 30    # the same with the device world
 PROFILED_TICKS = 5                # forward ticks profiled in each single-agent run
 PROFILE_FROM = 40                 # ... from this forward tick on
@@ -1103,8 +1131,8 @@ def closed_loop(cfg, ops, gpu, device_world=False):
 
 XOSC_DIR = os.path.join("data", "scenarios")
 STORY_XOSC = os.path.join(XOSC_DIR, "cut_in_with_controller.xosc")
-STORY_TICKS = 100                 # full-width MMFN-rad in the storyboard
-REMOTE_TICKS = 100
+STORY_TICKS = 70                  # full-width MMFN-rad in the storyboard
+REMOTE_TICKS = 70
 SCENARIO_RUN_SECONDS = 20         # scenario_run's wall budget for its one repetition
 # eval.yaml's straight road (map: null), the world of the shipped episodes
 # and of its default route data/routes/smoke_route.xml
@@ -1749,7 +1777,7 @@ def big_fleet(served, cfg, ops, gpu, busy_ms):
 
 DATA_TRAIN_TICKS = 160            # 15 frames a route: 6 routes, 54 samples, 2 batches
 DATA_VAL_TICKS = 310              # 30 frames: 24 samples, 1 batch
-DATA_EVAL_TICKS = 100
+DATA_EVAL_TICKS = 70
 DATA_EPOCHS = 2
 DATA_MODEL = {}                   # model overrides of phase2 and the served agent
 DATA_DEVICE = []                  # ["device=cpu"] in a CPU rehearsal
@@ -2016,7 +2044,8 @@ def data_path(ops, gpu, dev, model_root):
     train full-width MMFN-rad on the result with the port's phase2, and serve
     its best_model.pth with the port's phase0: the reference's own pipeline,
     end to end, with the checks of each step. The checkpoint is kept as
-    ``<model_root>/mmfn_rad/best_model.pth`` for the benchmark runner."""
+    ``<model_root>/mmfn_rad/best_model.pth`` for the benchmark runner, and
+    the phase-1 pools in ``<model_root>/pools`` for the multi-process phase."""
     from mmfn_tpu_torch.harness import phase0
     from mmfn_tpu_torch.train import phase2
 
@@ -2065,6 +2094,8 @@ def data_path(ops, gpu, dev, model_root):
         os.makedirs(os.path.join(model_root, "mmfn_rad"))
         shutil.copy(os.path.join(logdir, "best_model.pth"),
                     os.path.join(model_root, "mmfn_rad", "best_model.pth"))
+        for pool in ("pro_train_fmmfn", "pro_eval_fmmfn"):     # for the multi-process phase
+            shutil.copytree(os.path.join(tmp, pool), os.path.join(model_root, "pools", pool))
         laps("serve")
     launches = {name: trained["launches"][name] + served["launches"][name]
                 for name in ops.KERNELS}
@@ -2923,10 +2954,411 @@ def pretrained_phase(ops, gpu, dev):
     return {"launches": launches}
 
 
+# --------------------------------------------------------------------------- #
+# multi-process
+# --------------------------------------------------------------------------- #
+
+MP_EPOCHS = 2                     # the NCCL run's epochs before its resume
+MP_TIMEOUT = 600                  # seconds a torch.distributed.run may take
+MP_BATCH = 24                     # the two gloo ranks' global batch (12 a rank)
+MP_GRAD_REL = 0.1                 # worst relative L2 error of a parameter's gradient
+                                  # against one process: set between sound steps and steps
+                                  # missing an all-reduce (PERF.md §6)
+MP_FLEETS = (8, 7)                # the sharded TorchPipeline's fleet widths
+MP_TICKS = 10                     # timed sharded and unsharded fleet ticks
+MP_PHASE0_TICKS = 30
+MP_DEVICE = "cuda:0"              # both gloo ranks' device ("cpu" in a CPU rehearsal)
+MP_MODEL = {}                     # model overrides of the gloo ranks (a CPU rehearsal's small model)
+NO_DROPOUT = dict(embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(n, task, out, args=()):
+    """``n`` ranks of this script's ``--rank-task <task>`` under
+    ``torch.distributed.run``, in a session of their own that is killed on
+    a timeout; returns each rank's JSON, the seconds and the output."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={n}",
+           "--master_addr=localhost", f"--master_port={free_port()}",
+           os.path.abspath(__file__), "--rank-task", task, out, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=MP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(stdout[-3000:], stderr[-6000:], file=sys.stderr, flush=True)
+    require(proc.returncode == 0, f"{task}: {n} ranks under torch.distributed.run exit 0 "
+            f"(got {proc.returncode})")
+    results = []
+    for r in range(n):
+        with open(f"{out}.rank{r}.json") as f:
+            results.append(json.load(f))
+    return results, seconds, stdout
+
+
+def rank_phase2(ops, args):
+    """One rank of the phase2 CLI (``phase2.main(args)``), timed by epoch,
+    its launches counted from 0; the process group's backend recorded."""
+    import torch.distributed as dist
+
+    from mmfn_tpu_torch.parallel import mesh as pmesh
+    from mmfn_tpu_torch.train import Engine, phase2
+
+    group = {}
+    make_mesh = pmesh.make_mesh
+
+    def recording(*a, **k):
+        group.update(backend=str(dist.get_backend()), world=dist.get_world_size())
+        return make_mesh(*a, **k)
+
+    pmesh.make_mesh = recording
+    timed = Timed({"epoch": (Engine, "train"), "validate": (Engine, "validate"),
+                   "save": (Engine, "save")})
+    ops.reset_launch_counts()
+    captured = io.StringIO()
+    with timed, contextlib.redirect_stdout(captured):
+        code = phase2.main(args)
+    return {"exit": code, "group": group,
+            "launches": {name: k.launches for name, k in ops.KERNELS.items()},
+            "epoch_seconds": [ms / 1e3 for ms in timed.ms["epoch"]],
+            "validate_seconds": [ms / 1e3 for ms in timed.ms["validate"]],
+            "save_seconds": [ms / 1e3 for ms in timed.ms["save"]],
+            "stdout": captured.getvalue()[-3000:]}
+
+
+def _moments(state):
+    """AdamW's exp_avg by parameter name, tensor-parallel shards gathered (a
+    collective on the model group); 0.1 x the gradient after one step."""
+    from mmfn_tpu_torch.parallel import mesh as pmesh
+
+    tp = pmesh.layout_of(state.model)
+    out = {}
+    for name, p in state.model.named_parameters():
+        m = state.optimizer.state[p]["exp_avg"]
+        if tp is not None and name in tp.dims:
+            m = pmesh.gather_full(m, tp.dims[name], tp.group, tp.size)
+        out[name] = m.detach().clone()
+    return out
+
+
+def _worst_grad_error(got, want):
+    """The largest relative L2 error of a parameter's exp_avg, the norm of
+    the reference floored at 1e-6 of its largest element, and its name."""
+    floor = 1e-6 * max(float(v.abs().max()) for v in want.values())
+    errors = {k: float((got[k].double() - v.double()).norm()) / max(float(v.double().norm()),
+                                                                      floor)
+              for k, v in want.items()}
+    worst = max(errors, key=errors.get)
+    return errors[worst], worst
+
+
+def _max_diff(got, want, stats=False):
+    keys = [k for k in want if k.endswith(("running_mean", "running_var")) == stats
+            and not k.endswith("num_batches_tracked")]
+    if stats:
+        return max(float(((got[k].double() - want[k].double()).abs()
+                          / (1 + want[k].double().abs())).max()) for k in keys)
+    return max(float((got[k].double() - want[k].double()).abs().max()) for k in keys)
+
+
+def rank_pair(ops, args):
+    """Two ranks on cuda:0 over gloo: full-width MMFN-rad's DDP step and
+    model_parallel 2 (the eval forward through kernel 2, one step), each
+    against the one-process version on rank 0."""
+    import torch.distributed as dist
+
+    from mmfn_tpu_torch.config import GlobalConfig
+    from mmfn_tpu_torch.data.synthetic import synthetic_batch
+    from mmfn_tpu_torch.models import build_model
+    from mmfn_tpu_torch.parallel import mesh as pmesh
+    from mmfn_tpu_torch.train.engine import create_train_state, make_train_step
+
+    dev = pmesh.init_distributed(device=MP_DEVICE, backend="gloo")
+    rank = dist.get_rank()
+    cfg = GlobalConfig(attn_impl="pallas", **NO_DROPOUT, **MP_MODEL)
+    batch = synthetic_batch(MP_BATCH, cfg.max_lanes, seed=SEED,
+                            resolution=cfg.input_resolution, device=dev)
+
+    def model():
+        return build_model(cfg, "rad", torch.Generator().manual_seed(SEED), device=dev)
+
+    def step(state, b, data_rank=0):
+        loss = make_train_step(data_rank=data_rank)(state, b, SEED)
+        return float(loss)
+
+    res = {"rank": rank, "backend": dist.get_backend()}
+    if rank == 0:                                  # the one-process references
+        ref = model()
+        with torch.inference_mode():
+            ref_forward = ref(batch)
+        ref_state = create_train_state(ref, cfg)
+        ref_loss = step(ref_state, batch)
+        ref_after = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+        ref_mu = _moments(ref_state)
+        del ref, ref_state
+
+    mesh = pmesh.make_mesh(2)
+    ddp = model()
+    state = create_train_state(ddp, cfg, mesh)
+    t0 = time.perf_counter()
+    local = torch.tensor(step(state, pmesh.shard_batch(batch, mesh),
+                              pmesh.axis_rank(mesh, "data")), device=dev)
+    torch.cuda.synchronize()
+    res["ddp_step_s"] = time.perf_counter() - t0
+    dist.all_reduce(local)
+    ddp_loss = float(local) / 2
+    if rank == 0:
+        after = ddp.state_dict()
+        res.update(ddp_loss=ddp_loss, ref_loss=ref_loss,
+                   ddp_param_max_diff=_max_diff(after, ref_after),
+                   ddp_stats_rel_diff=_max_diff(after, ref_after, stats=True))
+        res["ddp_grad_rel_err"], res["ddp_grad_worst"] = _worst_grad_error(_moments(state),
+                                                                           ref_mu)
+    del ddp, state
+
+    tp_mesh = pmesh.make_mesh(2, ("data", "model"), (1, 2))
+    tp = pmesh.tensor_parallel_sharding(model(), tp_mesh)
+    heads = {m.local_heads for m in tp.modules() if hasattr(m, "local_heads")}
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        tp_forward = tp(batch)
+    torch.cuda.synchronize()
+    res["tp_forward_launches"] = {name: k.launches for name, k in ops.KERNELS.items()}
+    res["tp_local_heads"] = sorted(heads)
+    state = create_train_state(tp, cfg, tp_mesh)
+    tp_loss = step(state, batch)
+    after, mu = pmesh.full_state_dict(tp), _moments(state)
+    if rank == 0:
+        scale = float(ref_forward.abs().max())
+        res.update(tp_forward_max_diff=float((tp_forward - ref_forward).abs().max()),
+                   forward_scale=scale, tp_loss=tp_loss,
+                   tp_param_max_diff=_max_diff(after, ref_after),
+                   tp_stats_rel_diff=_max_diff(after, ref_after, stats=True), lr=cfg.lr)
+        res["tp_grad_rel_err"], res["tp_grad_worst"] = _worst_grad_error(mu, ref_mu)
+    pmesh.destroy_distributed()
+    return res
+
+
+def rank_task(task, out, args) -> int:
+    """The body of one rank of :func:`launch_ranks` (``--rank-task``)."""
+    from mmfn_tpu_torch import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"phase2": rank_phase2, "pair": rank_pair}[task](ops, args)
+    with open(f"{out}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def mp_phase2(tmp, pools_root, one_process_rate):
+    """(a): the phase2 CLI at world 1 over NCCL, then its DCP resume."""
+    from mmfn_tpu_torch.config import GlobalConfig
+    from mmfn_tpu_torch.data.dataset import PreprocessedDataset
+
+    logdir = os.path.join(tmp, "mp_log")
+    args = ["--config", os.path.join("run_steps", "config", "train.yaml"),
+            f"data_folder={os.path.join(pools_root, 'mmfn')}", f"logdir={logdir}",
+            "train_agent.entry_point=mmfn_rad", f"batch_size={TRAIN_BATCH}", "val_every=1",
+            "model.attn_impl=pallas", "wandb_mode=disabled", f"seed={SEED}",
+            "multi_host=true", "checkpoint_backend=orbax"] + [
+            f"model.{k}={v}" for k, v in DATA_MODEL.items()]
+    val_forwards = len(PreprocessedDataset(os.path.join(pools_root, "pro_eval_fmmfn"))) \
+        // TRAIN_BATCH
+    per_val = {"bev_hist": 0, "fused_attention": 4 * GlobalConfig(**DATA_MODEL).n_layer
+               * val_forwards}
+    runs = []
+    for epochs in (MP_EPOCHS, MP_EPOCHS + 1):
+        (rank0,), seconds, _ = launch_ranks(1, "phase2", os.path.join(tmp, f"p2_{epochs}"),
+                                            args + [f"epochs={epochs}"])
+        with open(os.path.join(logdir, "recent.log")) as f:
+            log = json.load(f)
+        fresh = epochs - (0 if not runs else MP_EPOCHS)
+        require(rank0["exit"] == 0 and log["epoch"] == epochs
+                and len(log["val_loss"]) == epochs, f"phase2 over NCCL: {log}")
+        require(rank0["group"]["world"] == 1 and "nccl" in rank0["group"]["backend"],
+                f"a world of 1 over NCCL (gloo for the CPU side of DCP): {rank0['group']}")
+        require(rank0["launches"] == {k: v * fresh for k, v in per_val.items()},
+                f"kernel 2 in each validation forward: {rank0['launches']}")
+        require(bool(np.isfinite(log["train_loss"] + log["val_loss"]).all()),
+                f"finite losses {log}")
+        require(os.path.exists(os.path.join(logdir, "model.orbax", ".metadata")),
+                "model.orbax is a DCP directory")
+        if runs:
+            require(f"resumed from epoch {MP_EPOCHS}" in rank0["stdout"],
+                    f"the rerun resumed from the DCP directory: {rank0['stdout'][-500:]}")
+        runs.append({"seconds": seconds, **{k: rank0[k] for k in (
+            "epoch_seconds", "validate_seconds", "save_seconds", "launches")}})
+    steps = log["iter"] // (MP_EPOCHS + 1)
+    # ms a step over each epoch, beside the one-process run's; an epoch of
+    # the data path's pools is a few steps, the first with its warm-up, too
+    # few to resolve a ratio of the two, so none is taken
+    step_ms = [s * 1e3 / steps for s in runs[0]["epoch_seconds"] + runs[1]["epoch_seconds"]]
+    shutil.rmtree(logdir, ignore_errors=True)
+    return {"runs": runs, "steps_per_epoch": steps, "epoch_ms_per_step": step_ms,
+            "one_process_epoch_ms_per_step": [TRAIN_BATCH / r * 1e3 for r in one_process_rate],
+            "launches": {k: sum(r["launches"][k] for r in runs) for k in per_val}}
+
+
+def mp_pair(tmp):
+    """(b): two ranks on cuda:0 over gloo, DDP then model_parallel 2."""
+    ranks, seconds, _ = launch_ranks(2, "pair", os.path.join(tmp, "pair"))
+    r0 = ranks[0]
+    require(all(r["backend"] == "gloo" for r in ranks), f"gloo ranks: {ranks}")
+    require(abs(r0["ddp_loss"] - r0["ref_loss"]) < 1e-4
+            and r0["ddp_param_max_diff"] < 2.5 * r0["lr"] and r0["ddp_stats_rel_diff"] < 1e-3
+            and r0["ddp_grad_rel_err"] < MP_GRAD_REL,
+            f"DDP step against one process: {r0}")
+    require(r0["tp_forward_max_diff"] < 1e-4 * r0["forward_scale"],
+            f"model_parallel 2 forward through kernel 2: {r0}")
+    require(abs(r0["tp_loss"] - r0["ref_loss"]) < 1e-4
+            and r0["tp_param_max_diff"] < 2.5 * r0["lr"] and r0["tp_stats_rel_diff"] < 1e-3
+            and r0["tp_grad_rel_err"] < MP_GRAD_REL,
+            f"model_parallel 2 step against one process: {r0}")
+    want = {"bev_hist": 0, "fused_attention": 32}
+    require(all(r["tp_forward_launches"] == want and r["tp_local_heads"] == [2]
+                for r in ranks), f"32 kernel-2 launches at 2 heads a rank: {ranks}")
+    return {"seconds": seconds, **{k: r0[k] for k in (
+                "ddp_loss", "ref_loss", "ddp_param_max_diff", "ddp_stats_rel_diff",
+                "ddp_grad_rel_err", "ddp_grad_worst", "tp_forward_max_diff", "forward_scale",
+                "tp_loss", "tp_param_max_diff", "tp_stats_rel_diff", "tp_grad_rel_err",
+                "tp_grad_worst", "ddp_step_s")},
+            "launches": {k: sum(r["tp_forward_launches"][k] for r in ranks) for k in want}}
+
+
+def fleet_tick_ms(pipe, payloads) -> float:
+    """Median host-clock ms of a fleet tick: dispatch and fetch (HostCopy)."""
+    from mmfn_tpu_torch.harness.agents.pipeline import HostCopy
+
+    for _ in range(2):
+        HostCopy(pipe.dispatch_fleet(payloads)).result()
+    ms = []
+    for _ in range(MP_TICKS):
+        t0 = time.perf_counter()
+        HostCopy(pipe.dispatch_fleet(payloads)).result()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def mp_serving(cfg, dev, ops, rng, tmp):
+    """(c): two shards on cuda:0 (two streams) against one, and phase0 with
+    agent.fleet_devices=1; each path's launches counted from 0."""
+    from mmfn_tpu_torch.harness import phase0
+    from mmfn_tpu_torch.harness.agents.pipeline import TorchPipeline
+    from mmfn_tpu_torch.harness.device_world import DeviceWorldPipeline
+    from mmfn_tpu_torch.mapping import vectorize_xodr
+    from mmfn_tpu_torch.models import build_model
+
+    two = [dev, dev]
+    model = build_model(cfg, "rad", torch.Generator().manual_seed(SEED), device=dev)
+    plain, sharded = (TorchPipeline(model, cfg, device=d) for d in (dev, two))
+    require(sharded.replicas.streams[0] is not None
+            and sharded.replicas.streams[0] != sharded.replicas.streams[1],
+            "two shards on two streams")
+    out = {"launches": {name: 0 for name in ops.KERNELS}}
+    per_shard = {"bev_hist": 1, "fused_attention": 4 * cfg.n_layer}
+    for width in MP_FLEETS:
+        payloads = [payload(rng, cfg) for _ in range(width)]
+        want = plain.dispatch_fleet(payloads).cpu().numpy()
+        ops.reset_launch_counts()
+        got = sharded.dispatch_fleet(payloads).cpu().numpy()
+        launches = {name: k.launches for name, k in ops.KERNELS.items()}
+        require(launches == {k: 2 * v for k, v in per_shard.items()},
+                f"fleet {width} over 2 shards: {launches}")
+        require(got.shape == (width, 4, 2) and bool(np.isfinite(got).all()),
+                f"sharded waypoints {got.shape}")
+        np.testing.assert_allclose(got, want, **WAYPOINT_TOL)
+        out[f"fleet{width}_max_abs_vs_unsharded"] = float(np.abs(got - want).max())
+        for k, v in launches.items():
+            out["launches"][k] += v
+    out["fleet8_tick_ms"] = {"unsharded": fleet_tick_ms(plain, payloads),
+                             "two_shards": fleet_tick_ms(sharded, payloads)}
+    del plain, sharded
+
+    with open(CROSS_MAP) as f:
+        rough_map, _, _ = vectorize_xodr(f.read(), tool_path=MAP_TOOL, birdview=False)
+    payloads = compact_payloads(rough_map, DW_WIDTH, rng)
+    plain, sharded = (DeviceWorldPipeline(model, cfg, device=d) for d in (dev, two))
+    for pipe in (plain, sharded):
+        pipe.set_map(rough_map)
+    want = plain.dispatch_fleet(payloads).cpu().numpy()
+    ops.reset_launch_counts()
+    got = sharded.dispatch_fleet(payloads).cpu().numpy()
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    require(launches == {k: 2 * v for k, v in per_shard.items()},
+            f"device world over 2 shards: {launches}")
+    np.testing.assert_allclose(got, want, **WAYPOINT_TOL)
+    out["device_world_max_abs_vs_unsharded"] = float(np.abs(got - want).max())
+    for k, v in launches.items():
+        out["launches"][k] += v
+    out["device_world_tick_ms"] = {"unsharded": fleet_tick_ms(plain, payloads),
+                                   "two_shards": fleet_tick_ms(sharded, payloads)}
+    out["sharded_launches"] = dict(out["launches"])
+    del plain, sharded, model
+    torch.cuda.empty_cache()
+
+    # one device: phase0 takes the plain path, so this checks the CLI's
+    # plumbing of agent.fleet_devices; its launches are not a sharded path's
+
+    _, row = run_phase0(phase0, ops, "fleet_devices", [
+        "routes=" + ROUTES, "fleet=4", f"max_ticks={MP_PHASE0_TICKS}",
+        "agent.fleet_devices=1"], tmp)
+    require(row["launches"]["bev_hist"] > 0
+            and row["launches"]["fused_attention"] == 4 * cfg.n_layer * row["launches"][
+                "bev_hist"], f"phase0 agent.fleet_devices=1: {row['launches']}")
+    out["phase0"] = {k: row[k] for k in ("seconds", "routes", "vehicle_ticks", "records")}
+    for k, v in row["launches"].items():
+        out["launches"][k] += v
+    return out
+
+
+def multi_process_phase(cfg, dev, ops, rng, gpu, pools_root, one_process_rate):
+    """Phase 19 (module docstring): NCCL world 1 through the phase2 CLI with a
+    DCP resume, two gloo ranks on cuda:0 for DDP and model_parallel 2, and
+    the sharded pipelines and phase0."""
+    laps = Laps()
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = mp_phase2(tmp, pools_root, one_process_rate)
+        emit("multi_process_nccl", gpu=gpu, **trained)
+        laps("nccl_phase2")
+        pair = mp_pair(tmp)
+        emit("multi_process_gloo_pair", gpu=gpu, **pair)
+        laps("gloo_pair")
+        served = mp_serving(cfg, dev, ops, rng, tmp)
+        emit("multi_process_serving", gpu=gpu, **served)
+        laps("serving")
+    launches = {k: trained["launches"][k] + pair["launches"][k] + served["launches"][k]
+                for k in ops.KERNELS}
+    emit("multi_process_summary", gpu=gpu, seconds=laps.seconds,
+         nccl_epoch_ms_per_step=trained["epoch_ms_per_step"],
+         one_process_epoch_ms_per_step=trained["one_process_epoch_ms_per_step"],
+         ddp_grad_rel_err=pair["ddp_grad_rel_err"], tp_grad_rel_err=pair["tp_grad_rel_err"],
+         ddp_loss_diff=abs(pair["ddp_loss"] - pair["ref_loss"]),
+         tp_forward_max_diff=pair["tp_forward_max_diff"],
+         fleet8_tick_ms=served["fleet8_tick_ms"],
+         device_world_tick_ms=served["device_world_tick_ms"], launches=launches)
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-task"]:
+        return rank_task(sys.argv[2], sys.argv[3], sys.argv[4:])
     from mmfn_tpu_torch import ops
     from mmfn_tpu_torch.config import GlobalConfig
     from mmfn_tpu_torch.ops import _cuda, attention, lidar
@@ -2982,6 +3414,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         runner = benchmark_phase(ops, gpu, model_root)
         laps("benchmark")
+        torch.cuda.empty_cache()
+        parallel = multi_process_phase(cfg, dev, ops, rng, gpu,
+                                       os.path.join(model_root, "pools"),
+                                       data["phase2_samples_per_s_by_epoch"])
+        laps("multi_process")
+        torch.cuda.empty_cache()
     training = run_training(cfg, dev, ops)
     laps("training")
     emit("data_path_summary", **data, training_f32_samples_per_s_synthetic=training[
@@ -3002,12 +3440,14 @@ def main() -> int:
     # scenario runner, the device world's forwards, phase0 runs and fleets,
     # the data path's validation and serving, the bench's pipeline steps and
     # fleets, bench_loop's soaks and fleet, the exported artifacts' forwards,
-    # introspection's fused forward and the pretrained run (the benchmark
-    # runner's legs launch in their own processes and are not counted here)
+    # introspection's fused forward, the pretrained run and the multi-process
+    # phase (its ranks report their own counts; the benchmark runner's legs
+    # launch in their own processes and are not counted here)
     for b in baselines.values():
         for name, n in b["launches"].items():
             launches[name] += n
-    for phase in (loop, scenes, world, data, benched, soaked, exported, looked, grafted):
+    for phase in (loop, scenes, world, data, benched, soaked, exported, looked, grafted,
+                  parallel):
         for name, n in phase["launches"].items():
             launches[name] += n
 

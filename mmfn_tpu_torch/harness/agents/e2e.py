@@ -41,8 +41,10 @@ on the same event, so there is none.
 bootstrap and the target point, and every sensor is synthesized on the
 device inside the forward call.
 
-Not ported yet, and refused: ``mesh`` (ROADMAP queue 1 item 4,
-multi-process).
+``device`` may be a list of devices: the agent hands it to its pipeline,
+which then splits a fleet's batched forward over them, one model replica
+and one stream each (the JAX agent's ``mesh``; ``harness/agents/
+pipeline.py``).
 """
 
 from __future__ import annotations
@@ -71,17 +73,14 @@ class MMFNAgent(AutonomousAgent):
     (a shared ``TorchPipeline`` or ``DeviceWorldPipeline``) in its place;
     optional ``config``, ``points_per_sweep``, ``host_bev``, ``packed``,
     ``tmp_dir``, ``rmap_tool``, ``async_dispatch``, ``device_world`` and
-    ``device`` (the CUDA device when absent; raises when there is none)."""
+    ``device`` (the CUDA device when absent, and raises when there is none;
+    a list of devices shards the fleet over them)."""
 
     def setup(self, conf) -> None:
         conf = conf or {}
         self.track = Track.MAP
         self.config: GlobalConfig = conf.get("config") or GlobalConfig()
         self.variant = conf.get("variant", "vec")
-        if conf.get("mesh") is not None:
-            raise NotImplementedError(
-                "mesh: serving a fleet across devices is not ported to mmfn_tpu_torch "
-                "yet (ROADMAP queue 1 item 4, multi-process)")
         pps = conf.get("points_per_sweep", 32768)
         host_bev = conf.get("host_bev")
         if host_bev is None:

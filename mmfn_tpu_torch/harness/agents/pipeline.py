@@ -18,12 +18,27 @@ for it before writing.
 ``HostCopy`` fetches a dispatch without blocking the caller: the async agent
 and the pipelined fleet steer from the previous tick's waypoints while this
 tick's forward runs.
+
+Fleet sharding (``device`` a list; the counterpart of the JAX package's
+``shard_over_mesh`` and ``JitPipeline(mesh=)``). The pipeline holds one model
+replica per entry (:class:`Replicas`). ``dispatch_fleet`` splits the rows
+into contiguous shards of ceil(N / K), pads the last shard with zero rows
+(``lane_num`` 1) and slices them off again; each shard is staged, copied and
+run on its own CUDA stream, so both kernels, which launch on the current
+stream, go with it. The shards' waypoints are joined into one (N, pred_len,
+2) tensor on the first device: each shard's stream copies its rows in and
+records an event, and the caller's stream waits on the events, never on a
+device synchronise; ``HostCopy`` then fetches every shard's rows into one
+pinned buffer. The same card may be named twice, as two shards on two
+streams: that is how a one-card machine checks the split, not a way to go
+faster. ``dispatch`` (one sample) runs on the first replica.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -70,6 +85,15 @@ class HostCopy:
         return self._host.numpy()
 
 
+def _zero_row(row: tuple) -> tuple:
+    """A padding sample shaped as ``row``: zeros, ``lane_num`` 1 (the lane
+    attention wants one valid token)."""
+    out = [None if a is None else np.zeros_like(a) for a in row]
+    if out[3] is not None:
+        out[3] = np.ones_like(out[3])
+    return tuple(out)
+
+
 def staging_buffer(cache: dict, nbytes: int, device: torch.device):
     """A reusable host buffer of ``nbytes`` (pinned for a CUDA ``device``)
     from ``cache``, once the previous copy out of it has finished; returns
@@ -86,25 +110,96 @@ def staging_buffer(cache: dict, nbytes: int, device: torch.device):
     return host, done
 
 
+def resolve_devices(device) -> List[torch.device]:
+    """``device`` (None, one device, or a list of them) -> the list of
+    devices, None being the CUDA device (raises when there is none)."""
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty device list")
+        return [resolve_device(d) for d in device]
+    return [resolve_device(device)]
+
+
+class Replicas:
+    """One model replica and one stream per device entry (module docstring):
+    the first entry holds ``model`` itself, the others copies of it.
+    ``run(n, shard_fn)`` calls ``shard_fn`` for each shard of ``n`` rows
+    under entry ``i``'s stream and joins the shards' outputs on the first
+    device."""
+
+    def __init__(self, model: torch.nn.Module, devices: Sequence[torch.device]):
+        self.devices = list(devices)
+        model = model.to(self.devices[0]).eval()
+        self.models = [model] + [copy.deepcopy(model).to(d).eval() for d in self.devices[1:]]
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" and len(self.devices) > 1
+                        else None for d in self.devices]
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def bounds(self, n: int) -> List[tuple]:
+        """(lo, hi, rows) of each shard holding real rows: contiguous, ceil(n / K)
+        rows each, the last one padded up to that."""
+        per = -(-n // len(self.devices))
+        return [(lo, min(n, lo + per), per) for lo in range(0, n, per)]
+
+    @torch.inference_mode()
+    def run(self, n: int, shard_fn: Callable[[int, int, int, int], torch.Tensor]
+            ) -> torch.Tensor:
+        """``shard_fn(i, lo, hi, rows)`` -> the first ``hi - lo`` output rows of
+        shard ``i`` on its device; returns all ``n`` rows on the first
+        device."""
+        if len(self.devices) == 1:
+            return shard_fn(0, 0, n, n)
+        outs = []
+        for i, (lo, hi, rows) in enumerate(self.bounds(n)):
+            stream = self.streams[i]
+            if stream is None:
+                outs.append(shard_fn(i, lo, hi, rows))
+                continue
+            stream.wait_stream(torch.cuda.current_stream(self.devices[i]))
+            with torch.cuda.stream(stream):
+                outs.append(shard_fn(i, lo, hi, rows))
+        main = self.devices[0]
+        if main.type != "cuda":
+            return torch.cat([o.to(main) for o in outs])
+        joined = torch.empty((n,) + tuple(outs[0].shape[1:]), dtype=outs[0].dtype, device=main)
+        current = torch.cuda.current_stream(main)
+        for (lo, hi, _), out, stream in zip(self.bounds(n), outs, self.streams):
+            if stream is None:
+                joined[lo:hi].copy_(out)
+                continue
+            with torch.cuda.stream(stream):
+                joined[lo:hi].copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            current.wait_event(done)
+        return joined
+
+
 class TorchPipeline:
     """Wraps an MMFN into one sensor -> waypoints call.
 
     Same public calls as the JAX package's ``JitPipeline``: ``dispatch``,
     ``__call__``, ``dispatch_fleet`` and ``zero_lanes``. ``dispatch`` and
     ``dispatch_fleet`` return the device tensor without waiting for it.
+    ``device``: one device, or a list of them to split ``dispatch_fleet``
+    over (module docstring; the JAX pipeline's ``mesh``).
     """
 
     def __init__(self, model: torch.nn.Module, config: GlobalConfig,
                  points_per_sweep: int = MAX_SWEEP_POINTS, host_bev: bool = False,
                  packed: bool = True, device=None):
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.replicas = Replicas(model, resolve_devices(device))
+        self.device = self.replicas.devices[0]
+        self.model = self.replicas.models[0]
         self.config = config
         self.variant = model.variant
         self.points_per_sweep = points_per_sweep
         self.host_bev = host_bev
         self.packed = packed
-        self._staging = {}   # total bytes -> (host buffer, copy-done event or None)
+        # a shard's total bytes -> (host buffer, copy-done event or None)
+        self._staging = [{} for _ in self.replicas.devices]
 
     # ---- host side ----
 
@@ -133,13 +228,15 @@ class TorchPipeline:
             np.asarray(velocity, dtype=np.float32),
         )
 
-    def _to_device(self, rows: Sequence[tuple]) -> List[Optional[torch.Tensor]]:
-        """Per-sample transport tuples -> batched device tensors (None kept)."""
+    def _to_device(self, rows: Sequence[tuple], shard: int = 0) -> List[Optional[torch.Tensor]]:
+        """Per-sample transport tuples -> batched tensors on shard
+        ``shard``'s device (None kept)."""
         n = len(rows)
         cols = list(zip(*rows))
+        device = self.replicas.devices[shard]
         if not self.packed:
             return [None if col[0] is None else
-                    torch.from_numpy(np.stack(col)).to(self.device) for col in cols]
+                    torch.from_numpy(np.stack(col)).to(device) for col in cols]
         layout, total = [], 0
         for col in cols:
             if col[0] is None:
@@ -148,7 +245,7 @@ class TorchPipeline:
             a = col[0]
             layout.append((total, a.nbytes, a.shape, a.dtype))
             total += -(-n * a.nbytes // _ALIGN) * _ALIGN
-        host, done = staging_buffer(self._staging, total, self.device)
+        host, done = staging_buffer(self._staging[shard], total, device)
         host_np = host.numpy()
         for col, item in zip(cols, layout):
             if item is None:
@@ -157,7 +254,7 @@ class TorchPipeline:
             for i, a in enumerate(col):
                 host_np[off + i * row_bytes:off + (i + 1) * row_bytes] = \
                     np.ascontiguousarray(a).view(np.uint8).reshape(-1)
-        dev = host.to(self.device, non_blocking=True)
+        dev = host.to(device, non_blocking=True)
         if done is not None:
             done.record()
         out = []
@@ -174,7 +271,7 @@ class TorchPipeline:
 
     @torch.inference_mode()
     def _apply_batched(self, image, points, lanes, lane_num, radar, map_img,
-                       target_point, velocity) -> torch.Tensor:
+                       target_point, velocity, shard: int = 0) -> torch.Tensor:
         if self.host_bev:
             bev = points.to(torch.float32) / HIST_MAX_PER_PIXEL
         else:
@@ -190,7 +287,7 @@ class TorchPipeline:
             target_point=target_point,
             velocity=velocity,
         )
-        return self.model(batch)
+        return self.replicas.models[shard](batch)
 
     # ---- public calls ----
 
@@ -205,12 +302,18 @@ class TorchPipeline:
         return self._apply_batched(*self._to_device([row]))[0]
 
     def dispatch_fleet(self, payloads) -> torch.Tensor:
-        """One batched forward over N agents' ``prepare_step`` payloads;
-        returns the (N, pred_len, 2) device tensor without waiting for it."""
+        """One batched forward over N agents' ``prepare_step`` payloads, split
+        over the devices; returns the (N, pred_len, 2) tensor on the first
+        device without waiting for it."""
         rows = [self._host_args(p["image"], p["points"], p["lanes"], p["lane_num"],
                                 p["radar"], p["map_img"], p["target_point"], p["speed"])
                 for p in payloads]
-        return self._apply_batched(*self._to_device(rows))
+
+        def shard(i, lo, hi, size):
+            part = rows[lo:hi] + [_zero_row(rows[0])] * (size - (hi - lo))
+            return self._apply_batched(*self._to_device(part, i), shard=i)[:hi - lo]
+
+        return self.replicas.run(len(rows), shard)
 
     def __call__(self, image: np.ndarray, points: np.ndarray,
                  lanes: Optional[np.ndarray], lane_num: Optional[int],

@@ -28,9 +28,14 @@ result, give the same float32: the BEV of a vehicle is the same on both.
 
 The BEV is binned by ``ops/lidar.py:lidar_to_histogram_features``, one
 launch of kernel 1 (``csrc/bev_hist.cu``) for the whole fleet's stacked
-clouds, and the model runs kernel 2 with ``attn_impl="pallas"``. Not
-ported yet, and refused: ``mesh`` (ROADMAP queue 1 item 4,
-multi-process).
+clouds, and the model runs kernel 2 with ``attn_impl="pallas"``.
+
+With a list of devices (the JAX pipeline's ``mesh``) the fleet splits as
+``TorchPipeline``'s does (``harness/agents/pipeline.py:Replicas``): the
+model and the map tables are replicated on each device, the ten payload
+columns split into contiguous shards, each synthesized and run on its own
+stream, one BEV launch a shard. The draws stay keyed by each vehicle's
+global index, so a sharded fleet sees the sensors of an unsharded one.
 """
 
 from __future__ import annotations
@@ -44,8 +49,7 @@ import torch
 
 from mmfn_tpu_torch.config import GlobalConfig
 from mmfn_tpu_torch.data.batch import Batch
-from mmfn_tpu_torch.device import resolve_device
-from mmfn_tpu_torch.harness.agents.pipeline import staging_buffer
+from mmfn_tpu_torch.harness.agents.pipeline import Replicas, resolve_devices, staging_buffer
 from mmfn_tpu_torch.ops.lidar import lidar_to_histogram_features
 from mmfn_tpu_torch.ops.radar import radar_adjacency
 
@@ -516,7 +520,8 @@ class DeviceWorldPipeline:
     map raises. ``synth_chunk`` synthesizes at most that many vehicles at a
     time, which bounds the memory of the birdview's per-pixel box tests; the
     forward stays one batched call and the BEV one kernel launch. ``device``
-    is the CUDA device when None (raises when there is none).
+    is the CUDA device when None (raises when there is none), or a list of
+    devices to split the fleet over (module docstring).
 
     Same public calls as ``TorchPipeline``: ``dispatch``, ``dispatch_fleet``
     (the device tensor, not waited for) and ``__call__``; :meth:`synthesize`
@@ -526,13 +531,9 @@ class DeviceWorldPipeline:
     packed = False
     host_bev = False
 
-    def __init__(self, model, config: GlobalConfig, mesh=None, seed: int = 0,
+    def __init__(self, model, config: GlobalConfig, seed: int = 0,
                  synth_chunk: Optional[int] = 32, birdview: Optional[bool] = None,
                  variant: Optional[str] = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: serving a fleet across devices is not ported to mmfn_tpu_torch "
-                "yet (ROADMAP queue 1 item 4, multi-process)")
         self.variant = variant or "vec" if isinstance(model, Mapping) else model.variant
         if birdview is None:
             birdview = self.variant == "img"
@@ -540,7 +541,7 @@ class DeviceWorldPipeline:
             raise ValueError("the img variant needs the birdview raster stream "
                              "(DeviceWorldPipeline(birdview=True))")
         self.birdview = birdview
-        self.device = resolve_device(device)
+        devices = resolve_devices(device)
         if isinstance(model, Mapping):
             from mmfn_tpu_torch.models.mmfn import build_model
             from mmfn_tpu_torch.utils.weights import load_reference_state_dict
@@ -548,14 +549,16 @@ class DeviceWorldPipeline:
             state_dict = model
             model = build_model(config, self.variant, device="cpu")
             load_reference_state_dict(model, state_dict)
-        self.model = model.to(self.device).eval()
+        self.replicas = Replicas(model, devices)
+        self.device = devices[0]
+        self.model = self.replicas.models[0]
         self.synth_chunk = synth_chunk
         self.config = config
         self.seed = seed
-        self._tables: Optional[dict] = None
+        self._tables: list = []            # the map's tables, one dict a device
         self._raster_meta = None           # (ppm, target, crop_size)
         self._fingerprint = None
-        self._staging = {}                 # bytes -> (pinned buffer, copy-done event)
+        self._staging = [{} for _ in devices]   # a shard's bytes -> (pinned buffer, event)
 
     # ---- the map ----
 
@@ -586,16 +589,17 @@ class DeviceWorldPipeline:
         if self._fingerprint == fp:
             return
         self._fingerprint = fp
-        self._tables = {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                        for k, v in tables.items()}
+        self._tables = [{k: torch.as_tensor(np.asarray(v)).to(d) for k, v in tables.items()}
+                        for d in self.replicas.devices]
 
     # ---- host side ----
 
-    def _upload(self, payloads) -> dict:
+    def _upload(self, payloads, shard: int = 0) -> dict:
         """The payloads' columns as one float32 (V, row) host array, one
-        copy to the device: name -> (V, ...) device tensors."""
+        copy to shard ``shard``'s device: name -> (V, ...) device tensors."""
         n = len(payloads)
-        host, done = staging_buffer(self._staging, n * _ROW * 4, self.device)
+        device = self.replicas.devices[shard]
+        host, done = staging_buffer(self._staging[shard], n * _ROW * 4, device)
         host = host.view(torch.float32).view(n, _ROW)
         rows = host.numpy()
         for i, p in enumerate(payloads):
@@ -612,7 +616,7 @@ class DeviceWorldPipeline:
                 (np.zeros(LIGHT_SLAB * 4, np.float32) if lights is None
                  else np.asarray(lights, np.float32).reshape(-1)),
                 [frame]])
-        dev = host.to(self.device, non_blocking=True, copy=True)
+        dev = host.to(device, non_blocking=True, copy=True)
         if done is not None:
             done.record()
         out, at = {}, 0
@@ -628,7 +632,8 @@ class DeviceWorldPipeline:
 
     # ---- device side ----
 
-    def _synth(self, cols: dict, vehicle: torch.Tensor, draws: Optional[dict]) -> dict:
+    def _synth(self, cols: dict, vehicle: torch.Tensor, draws: Optional[dict],
+               tables: dict) -> dict:
         """Every sensor of a chunk of vehicles (``cols`` sliced to it)."""
         cfg = self.config
         res = 0 if self.birdview else cfg.input_resolution
@@ -640,7 +645,7 @@ class DeviceWorldPipeline:
         out = {"map_img": None}
         if self.birdview:
             ppm, target, crop_size = self._raster_meta
-            raster = synth_birdview(pose, actors, cols["lights"], self._tables,
+            raster = synth_birdview(pose, actors, cols["lights"], tables,
                                     ppm, target, crop_size)
             out["image"] = torch.floor(raster * cols["brightness"][:, None, None, None])
             if self.variant == "img":
@@ -652,23 +657,27 @@ class DeviceWorldPipeline:
         ego_vel = cols["speed"][:, None] * torch.stack([_cos(yaw), _sin(yaw)], dim=1)
         out["radar"] = radar_core(draws["radar_normal"], draws["radar_uniform"], actors,
                                   avalid, yaw, ego_vel, rain, cfg.radar_points)
-        out["lanes"], out["lane_num"] = crop_lanes(pose, self._tables, cfg.max_lanes)
+        out["lanes"], out["lane_num"] = crop_lanes(pose, tables, cfg.max_lanes)
         return out
 
     @torch.inference_mode()
-    def sensors(self, payloads, draws: Optional[dict] = None) -> dict:
+    def sensors(self, payloads, draws: Optional[dict] = None, shard: int = 0,
+                first: int = 0) -> dict:
         """The fleet's compact payloads -> every synthesized sensor on the
         device, vehicle ``i`` in row ``i``: ``image``, ``points`` (the merged
         sweeps, (V, 3340, 4) [x, y, z, valid]), ``radar``, ``lanes``,
         ``lane_num``, ``map_img`` (None without the img variant), and the
         payloads' ``target_point`` and ``speed``. ``draws`` (name -> (V, ...)
-        tensors of :func:`draw_layout`) replaces the hashed draws."""
-        if self._tables is None:
+        tensors of :func:`draw_layout`) replaces the hashed draws. ``shard``
+        picks the device and ``first`` is the fleet index of the first
+        payload, which keys the draws."""
+        if not self._tables:
             raise RuntimeError("set_map() must run before dispatch_fleet "
                                "(the agents' map bootstrap does this)")
         n = len(payloads)
-        cols = self._upload(payloads)
-        vehicle = torch.arange(n, dtype=torch.int64, device=self.device)
+        device, tables = self.replicas.devices[shard], self._tables[shard]
+        cols = self._upload(payloads, shard)
+        vehicle = torch.arange(first, first + n, dtype=torch.int64, device=device)
         chunk = self.synth_chunk or n
         parts = []
         for lo in range(0, n, chunk):
@@ -676,7 +685,8 @@ class DeviceWorldPipeline:
             parts.append(self._synth(
                 {k: v[sl] for k, v in cols.items()}, vehicle[sl],
                 None if draws is None else
-                {k: torch.as_tensor(v, device=self.device)[sl] for k, v in draws.items()}))
+                {k: torch.as_tensor(v, device=device)[sl] for k, v in draws.items()},
+                tables))
 
         out = {k: None if v is None else torch.cat([p[k] for p in parts])
                for k, v in parts[0].items()}
@@ -685,10 +695,11 @@ class DeviceWorldPipeline:
         return out
 
     @torch.inference_mode()
-    def synthesize(self, payloads, draws: Optional[dict] = None) -> Batch:
+    def synthesize(self, payloads, draws: Optional[dict] = None, shard: int = 0,
+                   first: int = 0) -> Batch:
         """The fleet's compact payloads -> the model's input ``Batch`` on the
         device (see :meth:`sensors`)."""
-        s = self.sensors(payloads, draws)
+        s = self.sensors(payloads, draws, shard, first)
         # one BEV launch for the whole fleet's clouds
         return Batch(image=s["image"], lidar_bev=lidar_to_histogram_features(s["points"]),
                      map_img=s["map_img"], lanes=s["lanes"], lane_num=s["lane_num"],
@@ -696,15 +707,19 @@ class DeviceWorldPipeline:
                      target_point=s["target_point"], velocity=s["speed"])
 
     @torch.inference_mode()
-    def forward(self, batch: Batch) -> torch.Tensor:
-        return self.model(batch)
+    def forward(self, batch: Batch, shard: int = 0) -> torch.Tensor:
+        return self.replicas.models[shard](batch)
 
     # ---- public calls ----
 
     def dispatch_fleet(self, payloads) -> torch.Tensor:
-        """One synthesis and one batched forward over N compact payloads;
-        returns the (N, pred_len, 2) device tensor without waiting for it."""
-        return self.forward(self.synthesize(payloads))
+        """One synthesis and one batched forward over N compact payloads a
+        shard; returns the (N, pred_len, 2) tensor on the first device
+        without waiting for it."""
+        def shard(i, lo, hi, _):
+            return self.forward(self.synthesize(payloads[lo:hi], shard=i, first=lo), i)
+
+        return self.replicas.run(len(payloads), shard)
 
     def dispatch(self, payload) -> torch.Tensor:
         return self.dispatch_fleet([payload])[0]

@@ -48,9 +48,14 @@ synthesized on the device, and each forward launches the BEV kernel once
 for the whole batch. The experts run on the host, as the JAX package's do,
 and need no device.
 
+``agent.fleet_devices=N`` splits a fleet's batched forward over the first N
+CUDA devices (one model replica and one stream each,
+``harness/agents/pipeline.py``), and exits when fewer are visible; under
+``device=cpu`` over N CPU entries, which is how the CPU tests hold it to the
+JAX CLI's split over its virtual devices.
+
 Refused: ``simulator: carla`` (the CARLA glue needs a CARLA server, and the
-port has none to drive); ``agent.fleet_devices`` > 1, not ported yet
-(ROADMAP queue 1 item 4, multi-process).
+port has none to drive).
 
 Usage:
     python -m mmfn_tpu_torch.harness.phase0 --config run_steps/config/eval.yaml \\
@@ -94,10 +99,21 @@ def _refuse_unported(cfg) -> None:
         raise NotImplementedError("simulator: carla: the CARLA glue (the JAX package's "
                                   "harness/carla_glue.py) needs a CARLA server; "
                                   "mmfn_tpu_torch runs the fake world only")
-    if int(agent.get("fleet_devices", 1)) > 1:
-        raise NotImplementedError("agent.fleet_devices > 1: serving across devices is not "
-                                  "ported to mmfn_tpu_torch yet (ROADMAP queue 1 item 4, "
-                                  "multi-process)")
+
+
+def fleet_devices(cfg, device: torch.device):
+    """``device``, or with ``agent.fleet_devices=N`` > 1 the list of N
+    devices to split the fleet over: the first N CUDA devices (exits when
+    fewer are visible), or N CPU entries under ``device=cpu``."""
+    n = int((cfg.get("agent") or {}).get("fleet_devices", 1))
+    if n <= 1:
+        return device
+    if device.type == "cpu":
+        return [device] * n
+    visible = torch.cuda.device_count()
+    if visible < n:
+        raise SystemExit(f"agent.fleet_devices={n} but only {visible} devices are visible")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def _load_weights(model, agent_cfg) -> None:
@@ -190,6 +206,7 @@ def build_agent(cfg, shared=None, route_index=None):
     gconf = GlobalConfig(max_lanes=agent_cfg.get("max_lanes", 64), **overrides)
     variant = agent_cfg.get("variant", "vec")
     if "pipeline" not in shared:
+        device = fleet_devices(cfg, device)
         model = build_model(gconf, variant, torch.Generator().manual_seed(SEED), device="cpu")
         _load_weights(model, agent_cfg)
         if agent_cfg.get("device_world"):

@@ -6,6 +6,17 @@ broadcast to every token, then n_layer pre-LN blocks with ReLU MLPs and a
 final LayerNorm; the tokens split back into per-modality grids. Keys follow
 the reference checkpoint: ``pos_emb``, ``vel_emb``, ``blocks.{i}.ln1``,
 ``blocks.{i}.attn.{key,query,value,proj}``, ``blocks.{i}.mlp.{0,2}``, ``ln_f``.
+
+**Tensor parallelism.** ``parallel/mesh.py:tensor_parallel_sharding`` cuts
+QKV and ``mlp.0`` on their output features and ``proj`` and ``mlp.2`` on
+their input features, then calls :meth:`SelfAttention.set_model_group` and
+:meth:`Block.set_model_group`. A sharded sublayer enters through
+:func:`copy_to_model` (identity forward, all-reduce backward) and leaves
+through :func:`reduce_from_model` (all-reduce forward, identity backward),
+Megatron's f and g; the row-parallel bias is added once, after the
+all-reduce. Each rank attends over ``n_head / M`` heads, so under
+``attn_impl="pallas"`` kernel 2 runs at the local head count on the strided
+views of the local QKV outputs.
 """
 
 from __future__ import annotations
@@ -14,10 +25,49 @@ import math
 from typing import List
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from mmfn_tpu_torch.models.common import init_linear_normal
 from mmfn_tpu_torch.ops.attention import fused_attention
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, group)
 
 
 class SelfAttention(nn.Module):
@@ -34,13 +84,25 @@ class SelfAttention(nn.Module):
         self.resid_drop = nn.Dropout(resid_pdrop)
         self.n_head = n_head
         self.attn_impl = attn_impl
+        self.model_group = None    # the tensor-parallel group (set_model_group)
+        self.local_heads = n_head
+
+    def set_model_group(self, group, size: int) -> None:
+        """Run as one of ``size`` tensor-parallel ranks over ``group``, with
+        ``n_head / size`` heads (the weights are already sharded)."""
+        self.model_group = group
+        self.local_heads = self.n_head // size
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, c = x.shape
         hs = c // self.n_head
+        h = self.local_heads
+        group = self.model_group
+        if group is not None:
+            x = copy_to_model(x, group)
 
         def heads(y):
-            return y.view(b, t, self.n_head, hs).transpose(1, 2)
+            return y.view(b, t, h, hs).transpose(1, 2)
 
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
         if self.attn_impl == "pallas" and not self.training:
@@ -51,8 +113,11 @@ class SelfAttention(nn.Module):
         else:
             att = torch.softmax(q @ k.transpose(-2, -1) / math.sqrt(hs), dim=-1)
             y = self.attn_drop(att) @ v
-        y = y.transpose(1, 2).reshape(b, t, c)
-        return self.resid_drop(self.proj(y))
+        y = y.transpose(1, 2).reshape(b, t, h * hs)
+        if group is None:
+            return self.resid_drop(self.proj(y))
+        y = reduce_from_model(F.linear(y, self.proj.weight), group) + self.proj.bias
+        return self.resid_drop(y)
 
 
 class Block(nn.Module):
@@ -65,10 +130,23 @@ class Block(nn.Module):
         self.mlp = nn.Sequential(nn.Linear(n_embd, block_exp * n_embd), nn.ReLU(),
                                  nn.Linear(block_exp * n_embd, n_embd),
                                  nn.Dropout(resid_pdrop))
+        self.model_group = None
+
+    def set_model_group(self, group, size: int) -> None:
+        """The MLP's counterpart of :meth:`SelfAttention.set_model_group`."""
+        self.model_group = group
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        group = self.model_group
+        if group is None:
+            return self.mlp(x)
+        fc1, relu, fc2, drop = self.mlp
+        x = relu(fc1(copy_to_model(x, group)))
+        return drop(reduce_from_model(F.linear(x, fc2.weight), group) + fc2.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        return x + self._mlp(self.ln2(x))
 
 
 class FusionTransformer(nn.Module):

@@ -14,6 +14,17 @@ one, larger by a factor of n/(n-1) for n values per channel. The port follows
 the JAX package, the reference it is held to; the state_dict keys are
 torch's.
 
+**Global-batch statistics.** Under a data-parallel mesh the JAX package's
+BN moments are global-batch statistics: XLA all-reduces them
+(``docs/PARITY.md``). :func:`set_batchnorm_group` gives every
+:class:`BatchNorm2d` of a model the mesh's ``data`` group; in train mode each
+then all-reduces its per-channel sum, sum of squares and count over the
+group with ``torch.distributed.nn.functional.all_reduce``, so gradients flow
+through the reduction, and takes flax's variance E[x²] - E[x]² (clamped at
+0) from them. ``torch.nn.SyncBatchNorm`` would not do: it refuses CPU
+tensors and updates ``running_var`` unbiased. With no group, or a group of
+one rank, the code path is the single-process one.
+
 **Remat.** ``remat=True`` (``GlobalConfig.remat``) runs each BasicBlock in
 training under ``torch.utils.checkpoint`` (non-reentrant), as the JAX package
 wraps each block in ``nn.remat``: the backward recomputes the block's
@@ -49,10 +60,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.update_stats = True
+        self.data_group = None     # set_batchnorm_group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.data_group is not None:
+            return self._global_batch_norm(x)
         # One pass: torch's op leaves (1 - m) * old + m * the unbiased batch
         # variance in ``var``; moving (1 - m) * old by (n - 1) / n of the way
         # to it adds m * the biased one. Autograd keeps the running_var the
@@ -69,6 +83,41 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.mul_(1 - m).lerp_(var, (n - 1) / n)
                 self.num_batches_tracked.add_(1)
         return out
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN over the global batch of the data group (module
+        docstring), in f32."""
+        from torch.distributed.nn.functional import all_reduce
+
+        c, xf = x.shape[1], x.float()
+        stats = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // c)])
+        stats = all_reduce(stats, group=self.data_group)
+        mean = stats[:c] / stats[-1]
+        var = torch.clamp(stats[c:2 * c] / stats[-1] - mean * mean, min=0.0)
+        if self.update_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, m)
+                self.running_var.lerp_(var, m)
+                self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return out.to(x.dtype)
+
+
+def set_batchnorm_group(model: nn.Module, group) -> nn.Module:
+    """Give every :class:`BatchNorm2d` of ``model`` the data-parallel
+    ``group`` for global-batch statistics (None: per-process statistics,
+    the single-process path)."""
+    import torch.distributed as dist
+
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.data_group = group
+    return model
 
 
 class BasicBlock(nn.Module):

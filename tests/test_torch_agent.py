@@ -180,15 +180,20 @@ def test_agent_loads_a_reference_state_dict(models, rmap_tool):
         MMFNAgent({"variant": "vec", "pipeline": agent.pipeline, "config": cfg})
 
 
-@pytest.mark.parametrize("conf, match", [
-    ({"mesh": object()}, "ROADMAP queue 1 item 4"),
-    ({"device_world": True, "mesh": object()}, "ROADMAP queue 1 item 4"),
-], ids=["mesh", "device_world"])
-def test_agent_refuses_unported_options(models, conf, match):
+@pytest.mark.parametrize("conf", [{}, {"device_world": True}], ids=["host", "device_world"])
+def test_agent_shards_its_pipeline_over_a_device_list(models, conf):
+    """A list of devices (the JAX agent's ``mesh``) goes to the pipeline,
+    which holds one replica per entry on the same weights
+    (tests/test_torch_fleet_shards.py holds the split to JAX's)."""
     _, port = models["vec"]
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match=match):
-        MMFNAgent({"variant": "vec", "model": port, "config": cfg, "device": "cpu", **conf})
+    agent = MMFNAgent({"variant": "vec", "model": port, "config": cfg,
+                       "device": ["cpu", "cpu"], **conf})
+    replicas = agent.pipeline.replicas
+    assert replicas.devices == [torch.device("cpu")] * 2
+    assert replicas.models[0] is agent.pipeline.model is not replicas.models[1]
+    want = port.state_dict()
+    assert all(torch.equal(v, want[k]) for k, v in replicas.models[1].state_dict().items())
 
 
 def test_agent_refuses_compact_world_frames(models):

@@ -43,6 +43,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from mmfn_tpu.config import GlobalConfig as JaxConfig
 from mmfn_tpu.data.synthetic import synthetic_batch
@@ -95,7 +96,7 @@ def one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def tool(tmp_path_factory):
+def map_tool(tmp_path_factory):
     """native/rough_map_node.cpp built into this module's own directory."""
     path = tmp_path_factory.mktemp("rough_map_node") / "rough_map_node"
     subprocess.run(["g++", "-O2", "-std=c++17", "-o", str(path),
@@ -105,7 +106,7 @@ def tool(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def maps(tool, tmp_path_factory):
+def maps(map_tool, tmp_path_factory):
     """name -> (OpenDRIVE string, port RoughMap, JAX RoughMap)."""
     with open(CROSS_XODR) as f:
         xodrs = {"cross": f.read(), "curved": CURVED_XODR}
@@ -114,7 +115,7 @@ def maps(tool, tmp_path_factory):
         d = tmp_path_factory.mktemp(name) / "opendrive"
         d.mkdir()
         (d / "opstr.txt").write_text(xodr)
-        assert not build_rmap([str(d)], tool_path=tool)
+        assert not build_rmap([str(d)], tool_path=map_tool)
         rmap = str(d / "a.rmap")
         out[name] = (xodr, RoughMap().read(rmap), jax_rough_map.RoughMap().read(rmap))
     return out
@@ -410,9 +411,9 @@ def _payloads(n, rng, frame0=5):
             for i in range(n)]
 
 
-def _pipeline(rad_pair, maps, **kw):
+def _pipeline(rad_pair, maps, device="cpu", **kw):
     port, cfg = rad_pair[1]
-    pipe = dw.DeviceWorldPipeline(port, cfg, device="cpu", **kw)
+    pipe = dw.DeviceWorldPipeline(port, cfg, device=device, **kw)
     pipe.set_map(maps["curved"][1])
     return pipe
 
@@ -515,8 +516,49 @@ def test_pipeline_guards(rad_pair, maps):
         with torch.device("meta"):
             img = MMFN(cfg, "img")
         dw.DeviceWorldPipeline(img, cfg, birdview=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        dw.DeviceWorldPipeline(port, cfg, mesh=object(), device="cpu")
+    sharded = dw.DeviceWorldPipeline(port, cfg, device=["cpu", "cpu"])
+    sharded.set_map(maps["curved"][1])              # the map tables on every device
+    assert len(sharded.replicas) == len(sharded._tables) == 2
+
+
+def test_sharded_device_world_matches_jax_mesh(rad_pair, maps):
+    """Three vehicles over two CPU shards (2 + 1), each synthesized from
+    JAX's draws for its fleet index; JAX shards over 2 of its virtual
+    devices, padding to 4 and slicing back."""
+    (jmodel, jvars, jcfg), _ = rad_pair
+    payloads = _payloads(3, np.random.default_rng(8))
+    jpipe = jdw.DeviceWorldPipeline(jmodel, jvars, jcfg, seed=SEED,
+                                    mesh=Mesh(np.array(jax.devices()[:2]), ("fleet",)))
+    jpipe.set_map(maps["curved"][2])
+    want = np.asarray(jpipe.dispatch_fleet(payloads))
+    pipe = _pipeline(rad_pair, maps, seed=SEED, device=["cpu", "cpu"])
+    draws = _jax_draws(SEED, [p["frame"] for p in payloads], range(3), RES)
+
+    def shard(i, lo, hi, _):
+        part = {k: v[lo:hi] for k, v in draws.items()}
+        return pipe.forward(pipe.synthesize(payloads[lo:hi], part, shard=i, first=lo), i)
+
+    assert pipe.replicas.bounds(3) == [(0, 2, 2), (2, 3, 2)]
+    got = pipe.replicas.run(3, shard).numpy()
+    assert got.shape == want.shape == (3, 4, 2)
+    np.testing.assert_allclose(got, want, **WAYPOINT_TOL)
+
+
+def test_sharded_device_world_keys_draws_by_the_global_vehicle(rad_pair, maps):
+    """With the hashed draws, shard 1's vehicles see the sensors they see in
+    the unsharded fleet: the draws ride the fleet index, not the index
+    within a shard."""
+    payloads = _payloads(5, np.random.default_rng(9))
+    plain = _pipeline(rad_pair, maps, seed=SEED)
+    sharded = _pipeline(rad_pair, maps, seed=SEED, device=["cpu", "cpu"])
+    want = plain.synthesize(payloads)
+    for i, (lo, hi, _) in enumerate(sharded.replicas.bounds(5)):
+        got = sharded.synthesize(payloads[lo:hi], shard=i, first=lo)
+        for name, x, y in zip(got._fields, got, want):
+            if x is not None:
+                assert torch.equal(x, y[lo:hi]), (i, name)
+    np.testing.assert_allclose(sharded.dispatch_fleet(payloads).numpy(),
+                               plain.dispatch_fleet(payloads).numpy(), **WAYPOINT_TOL)
 
 
 # --------------------------------------------------------------------------- #
@@ -565,7 +607,7 @@ def test_world_state_frames_match_jax(maps):
 
 
 @pytest.mark.parametrize("extra", [[], ["agent.async_dispatch=true"]], ids=["sync", "async"])
-def test_phase0_serves_the_device_world(tool, tmp_path, extra):
+def test_phase0_serves_the_device_world(map_tool, tmp_path, extra):
     """agent.device_world=true at n_layer 1 and 16 lanes: MMFNAgent over a
     DeviceWorldPipeline in compact world frames; every forward tick steers
     and the record is scored."""
@@ -573,7 +615,7 @@ def test_phase0_serves_the_device_world(tool, tmp_path, extra):
     assert phase0.main(["--config", EVAL_YAML,
                         "routes=" + os.path.join(ROOT, "data", "routes", "cross_straight.xml"),
                         "map=" + CROSS_XODR, "scenarios=" + SCENARIOS, "resume=false",
-                        "checkpoint=" + str(path), "agent.rmap_tool=" + tool,
+                        "checkpoint=" + str(path), "agent.rmap_tool=" + map_tool,
                         "agent.variant=rad", "agent.n_layer=1", "agent.max_lanes=16",
                         "agent.attn_impl=pallas", "agent.device_world=true", "max_ticks=6",
                         "device=cpu", *extra]) == 0
@@ -585,7 +627,7 @@ def test_phase0_serves_the_device_world(tool, tmp_path, extra):
     assert np.isfinite(records[0]["scores"]["score_composed"])
 
 
-def test_fleet_fills_finished_slots_with_zero_payloads(rad_pair, tool, tmp_path):
+def test_fleet_fills_finished_slots_with_zero_payloads(rad_pair, map_tool, tmp_path):
     """A device-world fleet of 2 whose first route ends first: the freed
     batch slot takes the zero payload, which synthesizes, and both routes
     are scored."""
@@ -602,7 +644,7 @@ def test_fleet_fills_finished_slots_with_zero_payloads(rad_pair, tool, tmp_path)
         widths.append(sum(bool(p["frame"]) for p in payloads))
         return dispatch(payloads)
     pipe.dispatch_fleet = recording
-    agents = [MMFNAgent({"variant": "rad", "pipeline": pipe, "config": cfg, "rmap_tool": tool,
+    agents = [MMFNAgent({"variant": "rad", "pipeline": pipe, "config": cfg, "rmap_tool": map_tool,
                          "tmp_dir": str(tmp_path / str(i))}) for i in range(2)]
     routes = [{"config": RouteConfig(route_id=str(i), town="TownTest", index=i,
                                      trajectory=[(0.0, 1.75, 0.0), (60.0, 1.75, 0.0)]),

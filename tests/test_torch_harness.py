@@ -88,7 +88,7 @@ def one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def tool(tmp_path_factory):
+def map_tool(tmp_path_factory):
     """native/rough_map_node.cpp built into this module's own directory."""
     path = tmp_path_factory.mktemp("rough_map_node") / "rough_map_node"
     subprocess.run(["g++", "-O2", "-std=c++17", "-o", str(path),
@@ -98,7 +98,7 @@ def tool(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def rmaps(tool, tmp_path_factory):
+def rmaps(map_tool, tmp_path_factory):
     """name -> (OpenDRIVE string, .rmap path) for the three test maps."""
     with open(CROSS_XODR) as f:
         xodrs = {"cross": f.read(), "curved": CURVED_XODR, "straight": STRAIGHT_XODR}
@@ -107,7 +107,7 @@ def rmaps(tool, tmp_path_factory):
         d = tmp_path_factory.mktemp(name) / "opendrive"
         d.mkdir()
         (d / "opstr.txt").write_text(xodr)
-        assert not build_rmap([str(d)], tool_path=tool)
+        assert not build_rmap([str(d)], tool_path=map_tool)
         out[name] = (xodr, str(d / "a.rmap"))
     return out
 
@@ -365,23 +365,23 @@ def test_birdview_matches_cv2(rmaps, name):
 # the phase0 CLI
 # --------------------------------------------------------------------------- #
 
-def _cli_args(tool, checkpoint, *extra):
+def _cli_args(map_tool, checkpoint, *extra):
     return ["--config", EVAL_YAML, "routes=" + os.path.join(ROOT, "data", "routes",
                                                            "cross_straight.xml"),
             "map=" + CROSS_XODR, "scenarios=" + SCENARIOS, "resume=false",
-            "checkpoint=" + str(checkpoint), "agent.rmap_tool=" + tool, *extra]
+            "checkpoint=" + str(checkpoint), "agent.rmap_tool=" + map_tool, *extra]
 
 
-def test_phase0_npc_matches_the_jax_cli(tool, tmp_path, monkeypatch):
-    assert phase0.main(_cli_args(tool, tmp_path / "port.json", "agent.type=npc",
+def test_phase0_npc_matches_the_jax_cli(map_tool, tmp_path, monkeypatch):
+    assert phase0.main(_cli_args(map_tool, tmp_path / "port.json", "agent.type=npc",
                                  "max_ticks=80", "repetitions=2", "device=cpu")) == 0
     spec = importlib.util.spec_from_file_location(
         "jax_phase0_run_eval", os.path.join(ROOT, "run_steps", "phase0_run_eval.py"))
     jax_cli = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jax_cli)
-    monkeypatch.setattr(jax_rough_map, "default_tool_path", lambda: tool)
+    monkeypatch.setattr(jax_rough_map, "default_tool_path", lambda: map_tool)
     monkeypatch.setattr(sys, "argv", ["phase0_run_eval.py"] + [
-        a for a in _cli_args(tool, tmp_path / "jax.json", "agent.type=npc", "max_ticks=80",
+        a for a in _cli_args(map_tool, tmp_path / "jax.json", "agent.type=npc", "max_ticks=80",
                              "repetitions=2") if not a.startswith("agent.rmap_tool")])
     jax_cli.main()
     with open(tmp_path / "port.json") as f:
@@ -399,11 +399,11 @@ def test_phase0_npc_matches_the_jax_cli(tool, tmp_path, monkeypatch):
         assert g == w
 
 
-def test_phase0_serves_an_mmfn_on_the_cpu(tool, tmp_path):
+def test_phase0_serves_an_mmfn_on_the_cpu(map_tool, tmp_path):
     """agent.type=e2e (vec) at n_layer 1 and 16 lanes through TorchPipeline:
     every record is scored and finite."""
     path = tmp_path / "vec.json"
-    assert phase0.main(_cli_args(tool, path, "agent.variant=vec", "agent.n_layer=1",
+    assert phase0.main(_cli_args(map_tool, path, "agent.variant=vec", "agent.n_layer=1",
                                  "agent.max_lanes=16", "agent.attn_impl=pallas",
                                  "max_ticks=6", "device=cpu")) == 0
     with open(path) as f:
@@ -416,10 +416,20 @@ def test_phase0_serves_an_mmfn_on_the_cpu(tool, tmp_path):
 
 @pytest.mark.parametrize("override, match", [
     ("simulator=carla", "the CARLA glue .* needs a CARLA server"),
-    ("agent.fleet_devices=2", "ROADMAP queue 1 item 4"),
 ], ids=lambda v: v.split("=")[0] if "=" in v else v)
 def test_phase0_refuses_unported_options(tmp_path, override, match):
     with pytest.raises(NotImplementedError, match=match):
         phase0.main(["--config", EVAL_YAML, "resume=false",
                      "checkpoint=" + str(tmp_path / "x.json"), override])
     assert not (tmp_path / "x.json").exists()
+
+
+def test_phase0_fleet_devices_exits_when_too_few_are_visible(map_tool, tmp_path, monkeypatch):
+    """agent.fleet_devices=2 on a machine that shows one CUDA device exits
+    as the JAX CLI does (tests/test_torch_fleet_shards.py serves the split)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="fleet_devices=2 but only 1 devices"):
+        phase0.main(_cli_args(map_tool, tmp_path / "x.json", "agent.variant=vec",
+                              "agent.n_layer=1", "agent.max_lanes=16",
+                              "agent.fleet_devices=2", "max_ticks=2"))

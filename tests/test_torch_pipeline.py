@@ -17,6 +17,7 @@ import numpy as np
 import jax
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from mmfn_tpu.config import GlobalConfig as JaxConfig
 from mmfn_tpu.data.synthetic import synthetic_batch
@@ -121,6 +122,39 @@ def _port_sources():
     for dirpath, _, names in os.walk(os.path.join(ROOT, "mmfn_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return files
+
+
+def _jax_mesh(n=2):
+    return Mesh(np.array(jax.devices()[:n]), ("fleet",))
+
+
+@pytest.fixture(scope="module")
+def jax_sharded(models):
+    jmodel, variables, _, _ = models
+    return JitPipeline(jmodel, variables, JaxConfig(n_layer=1, max_lanes=MAX_LANES),
+                       points_per_sweep=PPS, mesh=_jax_mesh())
+
+
+@pytest.mark.parametrize("width", [8, 7])
+def test_sharded_pipeline_matches_jax_mesh(models, jax_sharded, width):
+    """Two CPU entries in ``device`` split ``dispatch_fleet``'s rows into
+    contiguous shards, one replica each (the last shard of 7 padded with a
+    zero row); JAX shards over 2 of its 8 virtual CPU devices."""
+    _, _, port, cfg = models
+    rng = np.random.default_rng(width)
+    payloads = [_payload(rng) for _ in range(width)]
+    want = np.asarray(jax_sharded.dispatch_fleet(payloads))
+    sharded = TorchPipeline(port, cfg, points_per_sweep=PPS, device=["cpu", "cpu"])
+    assert len(sharded.replicas) == 2
+    got = sharded.dispatch_fleet(payloads).numpy()
+    assert got.shape == want.shape == (width, 4, 2)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-3)
+    plain = TorchPipeline(port, cfg, points_per_sweep=PPS, device="cpu")
+    np.testing.assert_allclose(got, plain.dispatch_fleet(payloads).numpy(),
+                               rtol=1e-4, atol=2e-3)
+    np.testing.assert_allclose(sharded(*[payloads[0][k] for k in (
+        "image", "points", "lanes", "lane_num", "radar", "map_img", "target_point",
+        "speed")]), got[0], rtol=1e-4, atol=2e-3)
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():

@@ -58,7 +58,7 @@ TICKS = 400
 
 
 @pytest.fixture(scope="module")
-def tool(tmp_path_factory):
+def map_tool(tmp_path_factory):
     """native/rough_map_node.cpp built into this module's own directory."""
     path = tmp_path_factory.mktemp("rough_map_node") / "rough_map_node"
     subprocess.run(["g++", "-O2", "-std=c++17", "-o", str(path),
@@ -67,12 +67,12 @@ def tool(tmp_path_factory):
     return str(path)
 
 
-def _record(pkg, tool, xodr):
+def _record(pkg, map_tool, xodr):
     jax_side = pkg == "jax"
     rp = jreplay if jax_side else replay
     sc = jscenarios if jax_side else scenarios
     m, _, _ = (jrough_map if jax_side else rough_map).vectorize_xodr(
-        xodr, tool_path=tool, birdview=False)
+        xodr, tool_path=map_tool, birdview=False)
     config = (JaxRouteIndexer if jax_side else RouteIndexer)(ROUTES).next()
     route_xy = [p for p, _ in (jinterpolate if jax_side else interpolate_trajectory)(
         config.trajectory)]
@@ -90,14 +90,14 @@ def _record(pkg, tool, xodr):
 
 
 @pytest.fixture(scope="module")
-def recordings(tool, tmp_path_factory):
+def recordings(map_tool, tmp_path_factory):
     """pkg -> (RouteRecord, EpisodeRecorder, saved path) for one episode."""
     with open(CROSS_XODR) as f:
         xodr = f.read()
     d = tmp_path_factory.mktemp("recordings")
     out = {}
     for pkg in ("jax", "port"):
-        record, rec = _record(pkg, tool, xodr)
+        record, rec = _record(pkg, map_tool, xodr)
         path = str(d / f"{pkg}.json")
         rec.save(path)
         out[pkg] = (record, rec, path)
@@ -201,10 +201,10 @@ def _outputs(d):
 
 
 @pytest.mark.parametrize("metric", METRICS)
-def test_metric_copies_match_the_examples(recordings, tool, tmp_path, metric, monkeypatch):
+def test_metric_copies_match_the_examples(recordings, map_tool, tmp_path, metric, monkeypatch):
     path = recordings["port"][2]
-    monkeypatch.setattr(jrough_map, "default_tool_path", lambda: tool)
-    monkeypatch.setattr(rough_map, "default_tool_path", lambda: tool)
+    monkeypatch.setattr(jrough_map, "default_tool_path", lambda: map_tool)
+    monkeypatch.setattr(rough_map, "default_tool_path", lambda: map_tool)
     (tmp_path / "jax").mkdir()
     (tmp_path / "port").mkdir()
     want = jmetrics_log.run_metric(os.path.join(ROOT, "examples", "metrics", f"{metric}.py"),
@@ -236,17 +236,17 @@ def test_a_jax_metric_file_is_refused_before_it_runs(tmp_path):
 
 
 @pytest.mark.parametrize("metric", METRICS)
-def test_metrics_cli_matches_the_jax_cli(recordings, tool, tmp_path, metric, monkeypatch,
+def test_metrics_cli_matches_the_jax_cli(recordings, map_tool, tmp_path, metric, monkeypatch,
                                          capsys):
     path = recordings["jax"][2]
     assert metrics_run.main(["--log", path, "--metric", os.path.join(COPIES, f"{metric}.py"),
-                             "--out", str(tmp_path / "port"), "--rmap-tool", tool]) == 0
+                             "--out", str(tmp_path / "port"), "--rmap-tool", map_tool]) == 0
     got = capsys.readouterr().out
     spec = importlib.util.spec_from_file_location(
         "jax_metrics_run", os.path.join(ROOT, "run_steps", "metrics_run.py"))
     jax_cli = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jax_cli)
-    monkeypatch.setattr(jrough_map, "default_tool_path", lambda: tool)
+    monkeypatch.setattr(jrough_map, "default_tool_path", lambda: map_tool)
     monkeypatch.setattr(sys, "argv", [
         "metrics_run.py", "--log", path, "--metric",
         os.path.join(ROOT, "examples", "metrics", f"{metric}.py"),

@@ -102,6 +102,17 @@ def _drive(pkg, stack_cmd, tmp_path, name):
 
     def step(input_data, timestamp):
         c = run_step(input_data, timestamp)
+        if not controls:
+            # Ticks 0-1 alike in every drive. Tick 0 returns before the
+            # stack's first reply lands, or just after it under load, so the
+            # drive waits for that reply (step_mode_possible) and steers tick
+            # 0 by it; tick 1 then waits for the control that acknowledges
+            # it, however slow the stack is.
+            deadline = time.time() + 60.0
+            while not agent.step_mode_possible and time.time() < deadline:
+                time.sleep(0.005)
+            assert agent.step_mode_possible, "the stack never answered tick 0"
+            c = agent.current_control
         controls.append((c.steer, c.throttle, c.brake, agent._tick_seq, agent._control_seq))
         return c
     agent.run_step = step
@@ -152,6 +163,7 @@ def test_stepping_acknowledges_every_tick_by_its_seq(drives):
     """Once the first control has landed, each tick waits for the control
     that echoes its own seq."""
     _, controls, _ = drives[("port", "port")]
+    assert controls[0][4] == 0             # tick 0 steered by the reply to it
     assert [c[3] for c in controls] == list(range(TICKS))
     acked = [c for c in controls[1:] if c[4] is not None]
     assert len(acked) == TICKS - 1 and all(c[4] == c[3] for c in acked)
@@ -217,7 +229,7 @@ def test_a_dead_stack_raises_with_its_exit_code(tmp_path, mod):
 
 
 @pytest.fixture(scope="module")
-def tool(tmp_path_factory):
+def map_tool(tmp_path_factory):
     """native/rough_map_node.cpp built into this module's own directory."""
     path = tmp_path_factory.mktemp("rough_map_node") / "rough_map_node"
     subprocess.run(["g++", "-O2", "-std=c++17", "-o", str(path),
@@ -226,19 +238,19 @@ def tool(tmp_path_factory):
     return str(path)
 
 
-def test_phase0_remote_matches_the_jax_cli(tool, tmp_path, monkeypatch):
+def test_phase0_remote_matches_the_jax_cli(map_tool, tmp_path, monkeypatch):
     """agent.type=remote with stepping on the straight road: the port's CLI
     with the port's stack writes the JAX CLI's checkpoint records."""
     common = ["--config", EVAL_YAML, "agent.type=remote", "agent.stepping=true",
               "agent.step_timeout=60", "resume=false", "max_ticks=80"]
     monkeypatch.setenv("PYTHONPATH", ROOT)
-    assert phase0.main(common + ["agent.stack_cmd=" + PORT_STACK, "agent.rmap_tool=" + tool,
+    assert phase0.main(common + ["agent.stack_cmd=" + PORT_STACK, "agent.rmap_tool=" + map_tool,
                                  "checkpoint=" + str(tmp_path / "port.json")]) == 0
     spec = importlib.util.spec_from_file_location(
         "jax_phase0_run_eval", os.path.join(ROOT, "run_steps", "phase0_run_eval.py"))
     jax_cli = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(jax_cli)
-    monkeypatch.setattr(jrough_map, "default_tool_path", lambda: tool)
+    monkeypatch.setattr(jrough_map, "default_tool_path", lambda: map_tool)
     monkeypatch.setattr(sys, "argv", ["phase0_run_eval.py"] + common + [
         "agent.stack_cmd=" + JAX_STACK, "checkpoint=" + str(tmp_path / "jax.json")])
     jax_cli.main()

@@ -100,7 +100,7 @@ def one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def tool(tmp_path_factory):
+def map_tool(tmp_path_factory):
     """native/rough_map_node.cpp built into this module's own directory."""
     path = tmp_path_factory.mktemp("rough_map_node") / "rough_map_node"
     subprocess.run(["g++", "-O2", "-std=c++17", "-o", str(path),
@@ -110,7 +110,7 @@ def tool(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def maps(tool, tmp_path_factory):
+def maps(map_tool, tmp_path_factory):
     """name -> (OpenDRIVE string, JAX RoughMap, port RoughMap) for phase0's
     straight road (the .xosc episodes' world) and the cross town."""
     with open(CROSS_XODR) as f:
@@ -120,7 +120,7 @@ def maps(tool, tmp_path_factory):
         d = tmp_path_factory.mktemp(name) / "opendrive"
         d.mkdir()
         (d / "opstr.txt").write_text(xodr)
-        assert not rough_map.build_rmap([str(d)], tool_path=tool)
+        assert not rough_map.build_rmap([str(d)], tool_path=map_tool)
         rmap = str(d / "a.rmap")
         out[name] = (xodr, jrough_map.RoughMap().read(rmap), rough_map.RoughMap().read(rmap))
     return out
@@ -169,13 +169,13 @@ def test_catalog_equals_jax():
         assert scenarios.SCENARIO_CLASSES[name].__module__ == "mmfn_tpu_torch.harness.atoms"
 
 
-def _run(pkg, maps, tool, route_file=None, xosc=None, triggers_json=None, cap=None):
+def _run(pkg, maps, map_tool, route_file=None, xosc=None, triggers_json=None, cap=None):
     xodr, jmap, pmap = maps["cross" if route_file else "straight"]
     jax_side = pkg == "jax"
     m = jmap if jax_side else pmap
     rp = jreplay if jax_side else replay
     rec = (jrecording if jax_side else recording).EpisodeRecorder()
-    agent = (JaxExpert if jax_side else ExpertCollectionAgent)({"rmap_tool": tool})
+    agent = (JaxExpert if jax_side else ExpertCollectionAgent)({"rmap_tool": map_tool})
     manager = triggers = None
     if xosc is not None:
         osc = josc if jax_side else openscenario
@@ -205,7 +205,7 @@ def _run(pkg, maps, tool, route_file=None, xosc=None, triggers_json=None, cap=No
 
 
 @pytest.mark.parametrize("name", ATOM_SCENARIOS)
-def test_atom_scenario_drives_as_in_jax(maps, tool, tmp_path, name):
+def test_atom_scenario_drives_as_in_jax(maps, map_tool, tmp_path, name):
     """A placement JSON naming the type puts its trigger 40 m along the
     cross town's straight route; both runners drive the expert through it."""
     placement = tmp_path / "placement.json"
@@ -213,9 +213,9 @@ def test_atom_scenario_drives_as_in_jax(maps, tool, tmp_path, name):
         "scenario_type": name,
         "available_event_configurations": [{"transform": {"x": -40.0, "y": 1.75,
                                                           "yaw": 0.0}}]}]}]}))
-    want, wrec = _run("jax", maps, tool, route_file=CROSS_STRAIGHT,
+    want, wrec = _run("jax", maps, map_tool, route_file=CROSS_STRAIGHT,
                       triggers_json=str(placement), cap=600)
-    got, grec = _run("port", maps, tool, route_file=CROSS_STRAIGHT,
+    got, grec = _run("port", maps, map_tool, route_file=CROSS_STRAIGHT,
                      triggers_json=str(placement), cap=600)
     # the scenario spawned its own actors, not a crossing walker
     roles = {a["role_name"]: a for a in grec["actors"].values()}
@@ -248,11 +248,11 @@ def test_xosc_parses_as_in_jax(maps, xosc):
 
 
 @pytest.mark.parametrize("xosc", XOSCS)
-def test_xosc_episode_drives_as_in_jax(maps, tool, xosc):
+def test_xosc_episode_drives_as_in_jax(maps, map_tool, xosc):
     """The whole episode, the expert driving: every tick's actor states, the
     controls, the lights and the record are equal."""
-    want, wrec = _run("jax", maps, tool, xosc=xosc)
-    got, grec = _run("port", maps, tool, xosc=xosc)
+    want, wrec = _run("jax", maps, map_tool, xosc=xosc)
+    got, grec = _run("port", maps, map_tool, xosc=xosc)
     assert got.status.startswith("Completed"), got.status
     assert len(grec["frames"]) > 300
     assert _masked(grec) == _masked(wrec)
@@ -358,7 +358,7 @@ def _jax_cli(name):
     return module
 
 
-def test_phase0_xosc_matches_the_jax_cli(tool, tmp_path, monkeypatch):
+def test_phase0_xosc_matches_the_jax_cli(map_tool, tmp_path, monkeypatch):
     xosc = os.path.join(XOSC_DIR, "follow_leading_vehicle.xosc")
 
     def args(name):
@@ -366,9 +366,9 @@ def test_phase0_xosc_matches_the_jax_cli(tool, tmp_path, monkeypatch):
                 "resume=false", "checkpoint=" + str(tmp_path / f"{name}.json"),
                 "record=" + str(tmp_path / name)]
 
-    assert phase0.main(args("port") + ["agent.rmap_tool=" + tool]) == 0
+    assert phase0.main(args("port") + ["agent.rmap_tool=" + map_tool]) == 0
     jax_cli = _jax_cli("phase0_run_eval")
-    monkeypatch.setattr(jrough_map, "default_tool_path", lambda: tool)
+    monkeypatch.setattr(jrough_map, "default_tool_path", lambda: map_tool)
     monkeypatch.setattr(sys, "argv", ["phase0_run_eval.py"] + args("jax"))
     jax_cli.main()
     got, want = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("port", "jax"))
@@ -416,7 +416,7 @@ def _waypoint_log(agent, log):
     agent.finish_step = finish_step
 
 
-def test_mmfn_agent_drives_the_storyboard_as_in_jax(maps, tool, tmp_path, rad_models):
+def test_mmfn_agent_drives_the_storyboard_as_in_jax(maps, map_tool, tmp_path, rad_models):
     """The JAX agent drives cut_in_with_controller.xosc through the JAX
     runner; the port agent sees the port runner's frames of the same
     episode, steered by the JAX agent's controls (so that a last-bit
@@ -426,7 +426,7 @@ def test_mmfn_agent_drives_the_storyboard_as_in_jax(maps, tool, tmp_path, rad_mo
     jcfg, cfg, jpipe, port = rad_models
     xodr, jmap, pmap = maps["straight"]
     path = os.path.join(XOSC_DIR, "cut_in_with_controller.xosc")
-    common = {"variant": "rad", "points_per_sweep": PPS, "rmap_tool": tool}
+    common = {"variant": "rad", "points_per_sweep": PPS, "rmap_tool": map_tool}
     kw = dict(max_ticks=STORY_TICKS, world_kwargs={"lidar_points": 1500, "seed": 3})
 
     jagent = JaxMMFNAgent({**common, "pipeline": jpipe, "config": jcfg,
@@ -503,7 +503,7 @@ def _junit_cases(path):
     return suite.attrib, [(c.attrib, [(e.tag, e.attrib, e.text) for e in c]) for c in suite]
 
 
-def test_scenario_run_cut_in_matches_jax(tool, tmp_path, monkeypatch):
+def test_scenario_run_cut_in_matches_jax(map_tool, tmp_path, monkeypatch):
     """--scenario CutInFromLeftLane --agent expert, two randomized
     repetitions, JUnit, table and recordings."""
     flags = ["--scenario", "CutInFromLeftLane", "--agent", "expert", "--repetitions", "2",
@@ -513,10 +513,10 @@ def test_scenario_run_cut_in_matches_jax(tool, tmp_path, monkeypatch):
         return ["--junit", str(tmp_path / f"{name}.xml"), "--output",
                 str(tmp_path / f"{name}.txt"), "--record", str(tmp_path / f"{name}_rec.json")]
 
-    assert scenario_run.main(flags + outputs("port") + ["--rmap-tool", tool]) == 0
+    assert scenario_run.main(flags + outputs("port") + ["--rmap-tool", map_tool]) == 0
     monkeypatch.syspath_prepend(os.path.join(ROOT, "run_steps"))
     jax_run = _jax_cli("scenario_run")
-    monkeypatch.setattr(jrough_map, "default_tool_path", lambda: tool)
+    monkeypatch.setattr(jrough_map, "default_tool_path", lambda: map_tool)
     monkeypatch.setattr(sys, "argv", ["scenario_run.py"] + flags + outputs("jax"))
     jax_run.main()
     got, want = _junit_cases(tmp_path / "port.xml"), _junit_cases(tmp_path / "jax.xml")

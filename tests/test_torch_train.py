@@ -168,9 +168,18 @@ def test_fit_validates_saves_and_logs(tmp_path):
     assert all(np.isfinite(engine.train_loss))
 
 
-def test_engine_refuses_orbax(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        Engine(TinyNet(), CFG.replace(checkpoint_backend="orbax"), str(tmp_path))
+def test_engine_takes_the_orbax_backend(tmp_path):
+    """checkpoint_backend="orbax" writes DCP directories under the JAX
+    names (tests/test_torch_parallel.py holds them across world sizes); an
+    unknown backend raises."""
+    engine = Engine(TinyNet(), CFG.replace(checkpoint_backend="orbax"), str(tmp_path))
+    state = engine.initial_state()
+    engine.train(state, _batches(1), seed=0)
+    engine.save(state)
+    assert {p.name for p in tmp_path.iterdir()} == {"model.orbax", "recent.log"}
+    assert (tmp_path / "model.orbax" / ".metadata").exists()
+    with pytest.raises(ValueError, match="unknown checkpoint_backend"):
+        Engine(TinyNet(), CFG.replace(checkpoint_backend="zarr"), str(tmp_path))
 
 
 def test_dropout_masks_follow_seed_and_step():
@@ -438,10 +447,44 @@ def _phase2_twice(logdir, tmp_path, entry="mmfn_rad"):
     served.load_state_dict(torch.load(logdir / "model.pth", weights_only=True))
 
 
-@pytest.mark.parametrize("override,match", [
-    ("multi_host=true", "ROADMAP queue 1 item 4"), ("model_parallel=2", "ROADMAP queue 1 item 4")])
-def test_phase2_refuses_what_is_not_ported(override, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_phase2_multi_host_trains_in_a_process_group(tmp_path, monkeypatch):
+    """multi_host=true joins a gloo group from torchrun's variables (a world
+    of one here), trains DDP-wrapped with the DCP backend, resumes from it,
+    and destroys the group at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    _pool(tmp_path / "pro_train_fmmfn", synthetic_samples(4, 8, seed=1, resolution=RES))
+    _pool(tmp_path / "pro_eval_fmmfn", synthetic_samples(2, 8, seed=2, resolution=RES))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    logdir = tmp_path / "log"
+    args = ["--config", os.path.join(ROOT, "run_steps", "config", "train.yaml"),
+            f"data_folder={tmp_path / 'mmfn'}", f"logdir={logdir}", "device=cpu",
+            "batch_size=2", "max_lanes=8", "val_every=1", "save_every=1", "seed=3",
+            "train_agent.entry_point=cilrs", "wandb_mode=disabled", "multi_host=true", "coordinator_address=localhost:%d" % port,
+            "num_processes=1", "process_id=0", "checkpoint_backend=orbax",
+            "device_data_cache=false"]
+    try:
+        assert phase2.main(args + ["epochs=1"]) == 0
+        assert not dist.is_initialized()
+        assert phase2.main(args + ["epochs=2"]) == 0
+        log = json.loads((logdir / "recent.log").read_text())
+        assert (log["epoch"], log["iter"]) == (2, 4)
+        assert (logdir / "model.orbax" / ".metadata").exists()
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+
+@pytest.mark.parametrize("override", ["model_parallel=2", "model_parallel=3"])
+def test_phase2_refuses_a_model_axis_it_cannot_lay_out(override):
+    """Without a process group there is one process, which model_parallel > 1
+    cannot divide (the JAX CLI's SystemExit)."""
+    with pytest.raises(SystemExit, match="does not divide 1 process"):
         phase2.main(["--config", os.path.join(ROOT, "run_steps", "config", "train.yaml"),
                      override, "device=cpu"])
 

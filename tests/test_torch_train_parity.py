@@ -40,10 +40,20 @@ JAX f32 by 0.98-1.21 times that error in every module. So:
   to the port's own gradients: exact up to rounding, which an optimizer
   that drops or resets its moments misses by orders of magnitude.
 
+The first step also runs over 2 gloo ranks of the port
+(tests/_torch_parallel_worker.py): DDP at data 2 with global-batch BN, and
+model_parallel 2 at data 1. Each is held to both packages' one-process
+step at the JAX mesh's own bounds (tests/test_train.py: |Δloss| < 1e-4,
+parameters within 2.5·lr, BN statistics within relative 1e-3) and, since
+every element of a first AdamW update moves by about lr whatever its
+gradient, its exp_avg (0.1 g) at the gradient bounds above.
+
 One compile of the JAX gradient serves every f32 step test (module
-fixture). The losses and the data helpers are compared on random arrays,
+fixture), and the ranks run while it compiles. The losses and the data helpers are compared on random arrays,
 exactly or at 1e-6.
 """
+
+import shutil
 
 import numpy as np
 import jax
@@ -69,12 +79,16 @@ from mmfn_tpu_torch.data.batch import Batch
 from mmfn_tpu_torch.data.collate import collate_samples, data_loader
 from mmfn_tpu_torch.data.device_cache import estimate_cache_bytes
 from mmfn_tpu_torch.data.synthetic import synthetic_batch, synthetic_samples
+from mmfn_tpu_torch.harness.agents.pipeline import TorchPipeline
 from mmfn_tpu_torch.models import build_model
 from mmfn_tpu_torch.models import resnet as port_resnet
+from mmfn_tpu_torch.models.gpt import SelfAttention
 from mmfn_tpu_torch.train import cilrs_loss, create_train_state, make_train_step
 from mmfn_tpu_torch.train import waypoint_l1_loss
-from mmfn_tpu_torch.utils.weights import from_flax_variables
+from mmfn_tpu_torch.utils.weights import from_flax_variables, load_reference_state_dict
+from tests import _torch_parallel_worker as worker
 from tests.test_torch_models import _inputs, _randomise
+from tests.test_torch_pipeline import PPS, _payload
 
 N_LAYER, RES, BATCH, LANES = 1, 64, 4, 8
 NO_DROPOUT = dict(embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0)
@@ -190,17 +204,58 @@ def _port_steps(cfg, start, batches, floating=np.float32):
     return out
 
 
+def write_rank_spec(out, data, weights, **extra):
+    """The worker's ``spec.pt``: the start weights, the batch, the config
+    and three serving payloads at ``LANES``."""
+    payloads = [_payload(np.random.default_rng(40 + i)) for i in range(3)]
+    for p in payloads:
+        p["lanes"] = p["lanes"][:LANES]
+        p["lane_num"] = min(p["lane_num"], LANES)
+    torch.save({"start": weights, "batch": {k: torch.from_numpy(v) for k, v in data.items()},
+                "config": dict(n_layer=N_LAYER, max_lanes=LANES, **NO_DROPOUT),
+                "payloads": payloads, "pps": PPS, **extra}, out / "spec.pt")
+
+
 @pytest.fixture(scope="module")
-def run():
+def start():
+    """The two batches, and the JAX model with its randomised weights."""
+    batches = [_np_batch(seed) for seed in (10, 11)]
+    return batches, _start(batches[0])
+
+
+@pytest.fixture(scope="module")
+def launched(start, tmp_path_factory):
+    """The ``mmfn`` scenario of tests/_torch_parallel_worker.py (2 gloo
+    ranks: DDP at data 2, then model_parallel 2 at data 1) on the first
+    batch, from the same weights. The ranks start before JAX compiles its
+    step, and run while it does."""
+    batches, (_, _, _, _, weights) = start
+    out = tmp_path_factory.mktemp("ranks")
+    write_rank_spec(out, batches[0], weights)
+    procs = worker.launch("mmfn", 2, out)
+    yield procs, out
+    for p in procs:
+        p.kill()
+    shutil.rmtree(out, ignore_errors=True)
+
+
+@pytest.fixture(scope="module")
+def run(start, launched):
     """Two f32 train steps of both packages from the same weights: JAX
     through value_and_grad + optax.adamw (one compile), the port through
     its train step."""
-    batches = [_np_batch(seed) for seed in (10, 11)]
-    jcfg, jmodel, params, stats, start = _start(batches[0])
+    batches, (jcfg, jmodel, params, stats, weights) = start
     cfg = GlobalConfig(n_layer=N_LAYER, max_lanes=LANES, **NO_DROPOUT)
-    return {"cfg": cfg, "jcfg": jcfg, "start": start, "batches": batches,
+    return {"cfg": cfg, "jcfg": jcfg, "start": weights, "batches": batches,
             "jax": _jax_steps(jcfg, jmodel, params, stats, batches),
-            "port": _port_steps(cfg, start, batches)}
+            "port": _port_steps(cfg, weights, batches)}
+
+
+@pytest.fixture(scope="module")
+def ranks(launched):
+    procs, out = launched
+    return {"out": out, "ranks": worker.join(procs, "mmfn", out),
+            "payloads": torch.load(out / "spec.pt", weights_only=False)["payloads"]}
 
 
 def _grad_floor(grads):
@@ -344,6 +399,107 @@ def test_parameters_after_adamw_steps_match_jax(run, index):
                 torch.testing.assert_close(got[moment][k], ref[moment][k], rtol=1e-6,
                                            atol=1e-6 * float(ref[moment][k].abs().max()),
                                            msg=lambda m: f"{moment} {k}: {m}")
+
+
+# --------------------------------------------------------------------------- #
+# the same step over 2 gloo ranks (tests/_torch_parallel_worker.py, "mmfn")
+# --------------------------------------------------------------------------- #
+
+def _param_diff(got, want):
+    return max(float((got[k].double() - want[k].double()).abs().max())
+               for k in want if not k.endswith(("running_mean", "running_var",
+                                                  "num_batches_tracked")))
+
+
+def _stats_rel_diff(got, want):
+    return max(float(((got[k].double() - want[k].double()).abs()
+                      / (1 + want[k].double().abs())).max())
+               for k in want if k.endswith(("running_mean", "running_var")))
+
+
+def _assert_multi_process_step(loss, mu, after, run, reference):
+    """A multi-process step against ``reference``'s first step ("jax" or
+    the one-process "port"): the JAX mesh bounds of tests/test_train.py
+    (|Δloss| < 1e-4, parameters within 2.5·lr, BN statistics within
+    relative 1e-3), and the gradient, exp_avg = 0.1 g, at the bounds of
+    test_adamw_state_matches_jax. After one AdamW step every element moved
+    by about lr whatever its gradient, so only the moments tell a step on
+    the global batch from one on a rank's own rows or on partial sums."""
+    ref = run[reference][0]
+    assert abs(loss - ref["loss"]) < 1e-4, (loss, ref["loss"])
+    assert set(mu) == set(run["port"][0]["mu"])
+    _assert_within(_relative_errors(mu, ref["mu"], 0.1 * _grad_floor(run["jax"][0]["grads"])))
+    assert _param_diff(after, ref["after"]) < 2.5 * run["cfg"].lr
+    assert _stats_rel_diff(after, ref["after"]) < 1e-3
+
+
+@pytest.mark.parametrize("reference", ["jax", "port"])
+def test_ddp_step_matches_the_jax_mesh_and_one_process(run, ranks, reference):
+    """Two data ranks (DDP over gloo, global-batch BN), each on 2 of the 4
+    rows == the step on the whole batch. JAX's step over make_mesh(2) is
+    its single-device step at these bounds (tests/test_train.py), and
+    tests/test_torch_parallel.py holds the ranks to it directly (slow)."""
+    a, b = ranks["ranks"]
+    assert a["dp_loss"] == b["dp_loss"]
+    _assert_multi_process_step(a["dp_loss"], a["dp_mu"], a["dp_after"], run, reference)
+
+
+def test_global_batchnorm_statistics_are_not_per_shard(run, ranks):
+    """The BN running statistics after the DDP step are the global batch's,
+    at the tolerances of the one-process step (STATS_TOL): a per-shard
+    update (stock DDP BatchNorm) would miss them."""
+    want = _running_stats(run["jax"][0]["after"])
+    got = _running_stats(ranks["ranks"][0]["dp_after"])
+    assert _stats_mismatches(got, want, STATS_TOL) == []
+    moved = [k for k in want if k.endswith("running_var")
+             and not torch.allclose(want[k], run["start"][k].to(want[k].dtype))]
+    assert len(moved) > 50
+
+
+@pytest.mark.parametrize("reference", ["jax", "port"])
+def test_tensor_parallel_step_matches_jax(run, ranks, reference):
+    """One step under model_parallel 2 at data 1: 2 of the 4 heads a rank,
+    the conjugate f/g operators around each sharded block. The ``.pth``
+    written by rank 0 holds full tensors under the reference keys."""
+    a, b = ranks["ranks"]
+    assert a["tp_local_heads"] == b["tp_local_heads"] == {2}
+    after = torch.load(ranks["out"] / "tp2" / "model.pth", weights_only=True)
+    assert set(after) == set(run["start"])
+    assert all(after[k].shape == v.shape for k, v in run["start"].items())
+    assert all(torch.equal(a["tp_mu"][k], v) for k, v in b["tp_mu"].items())
+    _assert_multi_process_step(a["tp_loss"], a["tp_mu"], after, run, reference)
+
+
+@pytest.mark.parametrize("attn", ["xla", "pallas"])
+def test_tensor_parallel_forward_matches_one_process(run, ranks, attn):
+    """The eval forward at model_parallel 2 == the one-process forward
+    within 1e-4 of the largest waypoint; ``attn_impl="pallas"`` takes each
+    rank's 2 heads through ``fused_attention``. tests/test_torch_parallel.py
+    holds it against JAX's tensor_parallel_sharding forward (slow)."""
+    a, b = ranks["ranks"]
+    assert torch.equal(a["tp_forward"][attn], b["tp_forward"][attn])
+    model = build_model(run["cfg"], "rad", device="cpu")
+    model.load_state_dict(run["start"])
+    for m in model.modules():
+        if isinstance(m, SelfAttention):
+            m.attn_impl = attn
+    with torch.no_grad():
+        want = model.eval()(Batch(**{k: torch.from_numpy(v)
+                                     for k, v in run["batches"][0].items()}))
+    err = float((a["tp_forward"][attn] - want).abs().max())
+    assert err < 1e-4 * float(want.abs().max()), err
+
+
+def test_tp_checkpoint_serves_on_one_process(run, ranks):
+    """The model.pth of the tensor-parallel run loads into a one-process
+    TorchPipeline, which serves the waypoints the sharded model served."""
+    model = build_model(run["cfg"], "rad", device="cpu")
+    load_reference_state_dict(model, torch.load(ranks["out"] / "tp2" / "model.pth",
+                                                weights_only=True))
+    got = TorchPipeline(model, run["cfg"], points_per_sweep=PPS,
+                        device="cpu").dispatch_fleet(ranks["payloads"]).numpy()
+    np.testing.assert_allclose(got, ranks["ranks"][0]["tp_waypoints"].numpy(),
+                               rtol=1e-4, atol=2e-3)
 
 
 @pytest.mark.slow
