@@ -213,7 +213,30 @@ Phases, in order; any failure exits non-zero before the last line:
      and the phase0 CLI with ``agent.fleet_devices=1`` (one device, the
      plain path: it checks the CLI's plumbing only). The ranks are this
      script started again with ``--rank-task``; they report their own
-     launch counts.
+     launch counts;
+  20. the CARLA glue and the tools (``carla_tools``): the port's carla mock
+     (``harness/fake_carla``) installed, the phase0 CLI with
+     ``simulator=carla`` in process on the mock's straight test town, under
+     the glue's 2 s per-tick watchdog: (a) the expert drives a 40 m route to
+     "Completed" at 100; (b) full-width MMFN-rad (attn_impl "pallas",
+     host_bev off, random weights from seed 0; the CLI builds the kernels
+     with ``enable_persistent_cache`` and warms the pipeline before the loop)
+     for 68 forward ticks, then 30 with ``agent.async_dispatch``, the route's
+     game timeout cut to end there: launch counters set to 0 just before
+     each run and read just after, 1 BEV and 32 attention launches every
+     forward tick, every launch from the loop's thread while the glue's
+     reader threads poll, no watchdog trip and no agent crash; the last
+     tick's payload (the mock's 400-point sweeps padded to 2 x 32,768 rows)
+     replayed through the kernels, the plain attention on the card (rtol
+     1e-4 / atol 2e-3) and the plain versions on the CPU (rtol 1e-3 / atol
+     1e-2); the ticks' wall times as the watchdog sees them (median,
+     largest); then (c) ``python -m mmfn_tpu_torch.tools.record_episode``'s
+     ``main`` with the e2e agent (full-width MMFN-vec, plain attention) on
+     the cross town for 40 ticks: 1 BEV launch every forward tick, a GIF of
+     10 frames of 256 x 256 at 200 ms that loops, read by walking its
+     blocks; (d) ``viz_attention`` for full-width MMFN-rad (272 PNGs) and
+     ``render_birdview_samples`` (3 panels) into a temporary directory,
+     every PNG decoded by ``data/png.py``.
 
 Output: JSON lines per phase (the summary has the device ops per batch-1
 forward; ``baseline_summary`` the baselines' tick latency and device ops
@@ -223,15 +246,16 @@ runner's and the remote agent's; ``device_world_summary`` the device world's;
 ``train_summary`` the training rates, peak memory, idle share and device
 ops per step; ``bench``, ``bench_loop``, ``benchmark``, ``export`` and
 ``slice9_summary`` the bench's line and the rest of phases 11b-18;
+``carla_tools_summary`` phase 20's tick times, watchdog margins and launches;
 ``timing`` the seconds of each phase), then a ``kernels`` line whose launches count the served
 paths, MMFN-rad's requests, the baselines' ticks, the closed loop's four
 phase0 runs, the storyboard and the scenario runner, the device world's
 forwards, phase0 runs and fleets, the data path's validation and served
 run, the bench, bench_loop, the exported artifacts, introspection, the
-pretrained run and the multi-process phase (its ranks' own counts, and the
+pretrained run, the multi-process phase (its ranks' own counts, and the
 sharded pipelines'; not the benchmark runner's legs, which are processes of
-their own), the
-GPU's name and power limit as nvidia-smi gives them, and
+their own) and phase 20's MMFN-rad runs through the glue and
+record_episode, the GPU's name and power limit as nvidia-smi gives them, and
 last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 TF32 is off for matmuls and cuDNN convolutions throughout.
@@ -250,6 +274,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3353,6 +3378,359 @@ def multi_process_phase(cfg, dev, ops, rng, gpu, pools_root, one_process_rate):
     return {"launches": launches}
 
 
+# --------------------------------------------------------------------------- #
+# the CARLA glue and the tools
+# --------------------------------------------------------------------------- #
+
+GLUE_TICKS = 68                   # MMFN-rad forward ticks through the glue (after 2 warm-up)
+GLUE_ASYNC_TICKS = 30             # the same under agent.async_dispatch
+GLUE_ROUTE_M = 120.0              # the straight test town's route for MMFN-rad
+EXPERT_ROUTE_M = 40.0             # ... and for the expert, which drives it to the end
+EPISODE_TICKS = 40                # record_episode's ticks: 10 frames at --every 4
+GLUE_EXTRA = []                   # CPU rehearsal: ["device=cpu", "agent.n_layer=1", ...]
+TOOLS_EXTRA = []                  # CPU rehearsal: ["--device", "cpu"]
+VIZ_CONFIG = None                 # CPU rehearsal: a small GlobalConfig for viz_attention
+
+
+def town_test_route(tmp, length) -> str:
+    """A route file of one straight route of ``length`` m on the mock's
+    "TownTest" (the straight test road), along y = 1.75."""
+    path = os.path.join(tmp, f"town_test_{int(length)}.xml")
+    with open(path, "w") as f:
+        f.write('<routes><route id="0" town="TownTest">'
+                '<waypoint x="0.0" y="1.75" z="0.0"/>'
+                f'<waypoint x="{length}" y="1.75" z="0.0"/></route></routes>')
+    return path
+
+
+def gif_blocks(path):
+    """(width, height, [(frame width, frame height)], [delay cs], loop
+    count) of a GIF file, read by walking its blocks."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    require(data[:6] == b"GIF89a" and data[-1:] == b"\x3b", f"{path}: a GIF89a file")
+    width, height, packed = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+    frames, delays, loop = [], [], None
+
+    def skip_sub_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3b:
+        if data[pos] == 0x21:
+            label, pos = data[pos + 1], pos + 2
+            if label == 0xf9:
+                delays.append(struct.unpack("<H", data[pos + 2:pos + 4])[0])
+            elif label == 0xff and data[pos + 1:pos + 12] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", data[pos + 14:pos + 16])[0]
+            pos = skip_sub_blocks(pos)
+        else:
+            require(data[pos] == 0x2c, f"{path}: an image block at byte {pos}")
+            _, _, fw, fh, packed = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
+            pos += 10 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)       # after the LZW minimum code size
+            frames.append((fw, fh))
+    return width, height, frames, delays, loop
+
+
+class GlueProbe(Timed):
+    """What one run through the CARLA glue (or any loop of ``MMFNAgent``)
+    does, by wrapping methods of the port's classes while the run lasts:
+    the host clock at each pet of the watchdog (one a tick, so the gaps are
+    the ticks' wall times the watchdog sees) and any watchdog that expired;
+    the kernel launches of each tick that dispatched a forward; the pipeline;
+    the last ``finish_step``'s payload and waypoints (the input the glue
+    handed the agent, as the pipeline takes it, and what it steered by); the
+    threads the kernels were launched from; and the glue's sensor reader
+    threads alive on the first tick."""
+
+    def __init__(self, ops, glue=None):
+        super().__init__({})
+        self.ops, self.glue = ops, glue
+        self.updates, self.trips, self.tick_launches = [], 0, []
+        self.threads, self.readers = set(), None
+        self.pipeline, self.last, self.dispatches = None, None, 0
+
+    def launches(self):
+        return {name: k.launches for name, k in self.ops.KERNELS.items()}
+
+    def __enter__(self):
+        from mmfn_tpu_torch.harness.agents import MMFNAgent, TorchPipeline
+        from mmfn_tpu_torch.harness.watchdog import Watchdog
+        from mmfn_tpu_torch.ops._cuda import CudaKernel
+        probe = self
+
+        def update(orig):
+            def wrapped(dog):
+                probe.updates.append(time.perf_counter())
+                return orig(dog)
+            return wrapped
+
+        def expired(orig):
+            def wrapped(dog):
+                probe.trips += 1
+                return orig(dog)
+            return wrapped
+
+        def run_step(orig):
+            def wrapped(agent, input_data, timestamp):
+                if probe.readers is None and probe.glue is not None:
+                    probe.readers = sum(isinstance(t, probe.glue._BaseReader)
+                                        for t in threading.enumerate())
+                before, n = probe.launches(), probe.dispatches
+                control = orig(agent, input_data, timestamp)
+                if probe.dispatches > n:
+                    after = probe.launches()
+                    probe.tick_launches.append({k: after[k] - before[k] for k in after})
+                return control
+            return wrapped
+
+        def dispatch(orig):
+            def wrapped(pipe, *args):
+                probe.dispatches += 1
+                probe.pipeline = pipe
+                return orig(pipe, *args)
+            return wrapped
+
+        def finish_step(orig):
+            def wrapped(agent, payload, waypoints):
+                probe.last = (payload, np.array(waypoints))
+                return orig(agent, payload, waypoints)
+            return wrapped
+
+        def launch(orig):
+            def wrapped(kernel, *args):
+                probe.threads.add(threading.get_ident())
+                return orig(kernel, *args)
+            return wrapped
+
+        self._wrap(Watchdog, "update", update)
+        self._wrap(Watchdog, "_expired", expired)
+        self._wrap(MMFNAgent, "run_step", run_step)
+        self._wrap(MMFNAgent, "finish_step", finish_step)
+        self._wrap(TorchPipeline, "dispatch", dispatch)
+        self._wrap(CudaKernel, "launch", launch)
+        return super().__enter__()
+
+    def tick_ms(self) -> dict:
+        gaps = np.diff(self.updates) * 1e3
+        return {"ticks": len(self.updates), "median_ms": float(np.median(gaps)),
+                "max_ms": float(gaps.max())}
+
+
+def glue_checkpoint(path, name):
+    with open(path) as f:
+        records = json.load(f)["_checkpoint"]["records"]
+    require(len(records) == 1, f"{name}: one route record")
+    r = records[0]
+    require("Agent crashed" not in r["status"], f"{name}: {r['status']}")
+    require(np.isfinite(r["scores"]["score_composed"]), f"{name}: a finite score {r}")
+    return r
+
+
+def glue_expert(phase0, ops, tmp):
+    """(a) The expert drives the straight test town's 40 m route to the end
+    through the phase0 CLI with ``simulator=carla``."""
+    checkpoint = os.path.join(tmp, "carla_expert.json")
+    probe = GlueProbe(ops)
+    t0 = time.perf_counter()
+    with probe:
+        require(phase0.main(["--config", os.path.join("run_steps", "config", "eval.yaml"),
+                             "routes=" + town_test_route(tmp, EXPERT_ROUTE_M),
+                             "simulator=carla", "agent.type=expert",
+                             "agent.rmap_tool=" + MAP_TOOL, "resume=false",
+                             "checkpoint=" + checkpoint]) == 0, "phase0 carla expert exits 0")
+    r = glue_checkpoint(checkpoint, "carla expert")
+    require(r["status"] == "Completed" and r["scores"]["score_composed"] == 100.0,
+            f"the expert completes the route at 100 through the glue: {r}")
+    require(probe.trips == 0, "no watchdog trip under the expert")
+    return {"status": r["status"], "score_composed": r["scores"]["score_composed"],
+            "duration_game": r["meta"]["duration_game"], "seconds": time.perf_counter() - t0,
+            "tick": probe.tick_ms()}
+
+
+def glue_rad(phase0, glue, ops, tmp, ticks, async_dispatch):
+    """(b) Full-width MMFN-rad (attn_impl "pallas", host_bev off, random
+    weights from seed 0) through the phase0 CLI with ``simulator=carla``: the
+    CLI builds the kernels (``enable_persistent_cache``) and warms the
+    pipeline before the loop; the route's game timeout is cut to end after
+    ``ticks`` forward ticks. Launch counters set to 0 just before the run and
+    read just after; every forward tick launches 1 BEV and 32 attention
+    kernels, from the loop's thread; no watchdog trip, no crash. The last
+    tick's payload is replayed through the kernels, under the plain attention
+    on the card and through the plain versions on the CPU."""
+    from mmfn_tpu_torch.harness.agents import TorchPipeline
+
+    mode = "async" if async_dispatch else "sync"
+    checkpoint = os.path.join(tmp, f"carla_rad_{mode}.json")
+    warm_ups = 3 if async_dispatch else 2
+    end = (ticks + warm_ups) * glue.FIXED_DELTA_SECONDS - glue.FIXED_DELTA_SECONDS / 2
+    saved_timeout, glue.route_timeout_seconds = glue.route_timeout_seconds, lambda length: end
+    probe = GlueProbe(ops, glue)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with probe:
+            require(phase0.main(
+                ["--config", os.path.join("run_steps", "config", "eval.yaml"),
+                 "routes=" + town_test_route(tmp, GLUE_ROUTE_M), "simulator=carla",
+                 "agent.type=e2e", "agent.variant=rad", "agent.attn_impl=pallas",
+                 "agent.model_path=null", "agent.rmap_tool=" + MAP_TOOL,
+                 f"agent.async_dispatch={str(async_dispatch).lower()}", "resume=false",
+                 "checkpoint=" + checkpoint] + GLUE_EXTRA) == 0, f"phase0 carla rad {mode} exits 0")
+    finally:
+        glue.route_timeout_seconds = saved_timeout
+    seconds = time.perf_counter() - t0
+    launches = probe.launches()
+    r = glue_checkpoint(checkpoint, f"carla rad {mode}")
+    forwards = len(probe.tick_launches)
+    require(probe.trips == 0, f"rad {mode}: no watchdog trip at 2 s a tick")
+    require(forwards >= ticks, f"rad {mode}: {forwards} forward ticks, want {ticks}")
+    bad = [t for t in probe.tick_launches if t != {"bev_hist": 1, "fused_attention": 32}]
+    require(not bad, f"rad {mode}: 1 BEV and 32 attention launches every forward tick: {bad[:3]}")
+    require(probe.threads == {threading.main_thread().ident},
+            f"rad {mode}: every kernel launched from the loop's thread: {probe.threads}")
+    require((probe.readers or 0) >= 2, f"rad: the glue's reader threads ran: {probe.readers}")
+
+    payload, steered = probe.last
+    pipe = probe.pipeline
+    again = pipe(*call_args(payload))
+    with plain_attention(pipe.model):
+        plain_gpu = pipe(*call_args(payload))
+    cpu_model = copy.deepcopy(pipe.model).to("cpu")
+    plain_cpu = TorchPipeline(cpu_model, pipe.config, points_per_sweep=pipe.points_per_sweep,
+                              host_bev=False, device="cpu")(*call_args(payload))
+    del cpu_model
+    errs = {"max_abs_vs_replay": float(np.abs(steered - again).max()),
+            "max_abs_vs_plain_gpu": float(np.abs(steered - plain_gpu).max()),
+            "max_abs_vs_cpu": float(np.abs(steered - plain_cpu).max()),
+            "max_abs_waypoint": float(np.abs(plain_cpu).max())}
+    require(steered.shape == (4, 2) and bool(np.isfinite(steered).all()),
+            f"rad {mode}: finite (4, 2) waypoints")
+    np.testing.assert_allclose(steered, again, **WAYPOINT_TOL)
+    np.testing.assert_allclose(steered, plain_gpu, **WAYPOINT_TOL)
+    np.testing.assert_allclose(steered, plain_cpu, **CPU_TOL)
+    return {"status": r["status"], "score_composed": r["scores"]["score_composed"],
+            "seconds": seconds, "forward_ticks": forwards, "launches": launches,
+            "tick": probe.tick_ms(), "reader_threads": probe.readers,
+            "points_in_last_tick": int(len(payload["points"])), **errs}
+
+
+def glue_episode(ops, tmp):
+    """(c) ``record_episode`` with the e2e agent (MMFN-vec at full width,
+    random weights, plain attention) on the cross town, capped at
+    EPISODE_TICKS: 1 BEV launch every forward tick; the GIF's frames counted
+    and sized by walking its blocks."""
+    from mmfn_tpu_torch.tools import record_episode
+
+    out = os.path.join(tmp, "episode.gif")
+    probe = GlueProbe(ops)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with probe:
+        require(record_episode.main(
+            ["--route", os.path.join("data", "routes", "cross_straight.xml"), "--map", CROSS_MAP,
+             "--agent", "e2e", "--max-ticks", str(EPISODE_TICKS), "--out", out,
+             "--rmap-tool", MAP_TOOL] + TOOLS_EXTRA) == 0, "record_episode exits 0")
+    seconds = time.perf_counter() - t0
+    launches = probe.launches()
+    width, height, frames, delays, loop = gif_blocks(out)
+    want_frames = -(-EPISODE_TICKS // 4)
+    require(len(frames) == want_frames and set(frames) == {(width, height)} == {(256, 256)},
+            f"record_episode: {want_frames} frames of 256 x 256: {width}x{height}, {frames}")
+    require(set(delays) == {20} and loop == 0, f"record_episode: 200 ms frames, loop 0: "
+                                               f"{delays}, {loop}")
+    bad = [t for t in probe.tick_launches if t != {"bev_hist": 1, "fused_attention": 0}]
+    require(probe.tick_launches and not bad,
+            f"record_episode: 1 BEV launch every forward tick: {bad[:3]}")
+    return {"seconds": seconds, "forward_ticks": len(probe.tick_launches), "frames": len(frames),
+            "bytes": os.path.getsize(out), "launches": launches}
+
+
+def glue_tools(ops, tmp):
+    """(d) ``viz_attention`` for full-width MMFN-rad and
+    ``render_birdview_samples``, into a temporary directory: the file counts,
+    and every PNG decoded by ``data/png.py``."""
+    from mmfn_tpu_torch.config import GlobalConfig
+    from mmfn_tpu_torch.data import png
+    from mmfn_tpu_torch.tools import render_birdview_samples, viz_attention
+
+    cfg = VIZ_CONFIG or GlobalConfig()
+    att_dir, bv_dir = os.path.join(tmp, "attention"), os.path.join(tmp, "birdview")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    require(viz_attention.main(["--variant", "rad", "--out", att_dir] + TOOLS_EXTRA,
+                               config=VIZ_CONFIG) == 0, "viz_attention exits 0")
+    viz_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    files = sorted(os.listdir(att_dir))
+    # per layer: 3 stages of 3 token groups (1 + 6 maps), 1 of 4 (1 + 12)
+    require(len(files) == cfg.n_layer * (3 * 7 + 13), f"viz_attention: {len(files)} files")
+    res = cfg.input_resolution
+    for name in files:
+        img = png.read(os.path.join(att_dir, name))
+        want = (512, 512, 3) if name.endswith("_tokens.png") else (res, res, 3)
+        require(img.shape == want, f"viz_attention {name}: {img.shape}")
+    t0 = time.perf_counter()
+    require(render_birdview_samples.main(["--out", bv_dir, "--rmap-tool", MAP_TOOL]) == 0,
+            "render_birdview_samples exits 0")
+    bv_s = time.perf_counter() - t0
+    panels = sorted(os.listdir(bv_dir))
+    require(panels == ["birdview_cross.png", "birdview_loop.png", "birdview_straight.png"],
+            f"render_birdview_samples: {panels}")
+    for name in panels:
+        img = png.read(os.path.join(bv_dir, name))
+        require(img.shape == (256, 1024, 3) and img.any(), f"{name}: {img.shape}")
+    return {"viz_attention": {"files": len(files), "seconds": viz_s, "launches": launches},
+            "render_birdview_samples": {"files": len(panels), "seconds": bv_s}}
+
+
+def carla_phase(ops, gpu, build_seconds):
+    """Phase 20: the CARLA glue on the port's carla mock (the expert; full-width
+    MMFN-rad synchronous and with ``async_dispatch``) through the phase0 CLI,
+    then ``record_episode``, ``viz_attention`` and
+    ``render_birdview_samples``."""
+    from mmfn_tpu_torch.harness import fake_carla, phase0
+    from mmfn_tpu_torch.tools.render_birdview_samples import STRAIGHT_XODR
+    from mmfn_tpu_torch.utils.compile_cache import enable_persistent_cache
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        glue = fake_carla.install({"TownTest": STRAIGHT_XODR})
+        try:
+            require(glue.HAS_CARLA, "the glue binds the mock once it is installed")
+            out["expert"] = glue_expert(phase0, ops, tmp)
+            t0 = time.perf_counter()
+            require(enable_persistent_cache(), "enable_persistent_cache() on the card")
+            out["cache"] = {"cold_build_s": build_seconds,
+                            "warm_call_s": time.perf_counter() - t0}
+            out["rad_sync"] = glue_rad(phase0, glue, ops, tmp, GLUE_TICKS, False)
+            out["rad_async"] = glue_rad(phase0, glue, ops, tmp, GLUE_ASYNC_TICKS, True)
+        finally:
+            fake_carla.uninstall()
+        require("carla" not in sys.modules, "the mock is gone after uninstall()")
+        torch.cuda.empty_cache()
+        out["episode"] = glue_episode(ops, tmp)
+        torch.cuda.empty_cache()
+        out.update(glue_tools(ops, tmp))
+    launches = {k: sum(out[p]["launches"][k] for p in ("rad_sync", "rad_async", "episode"))
+                + out["viz_attention"]["launches"][k] for k in ops.KERNELS}
+    emit("carla_tools", gpu=gpu, **out)
+    watchdog_s = 2.0
+    emit("carla_tools_summary", gpu=gpu, watchdog_s=watchdog_s,
+         expert_tick_ms=out["expert"]["tick"],
+         rad_tick_ms={m: out[f"rad_{m}"]["tick"] for m in ("sync", "async")},
+         watchdog_margin_s={m: watchdog_s - out[f"rad_{m}"]["tick"]["max_ms"] / 1e3
+                            for m in ("sync", "async")},
+         cache=out["cache"], launches=launches)
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA GPU", file=sys.stderr)
@@ -3375,7 +3753,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = _cuda.build_all()
-    emit("build", seconds=time.perf_counter() - t0,
+    build_seconds = time.perf_counter() - t0
+    emit("build", seconds=build_seconds,
          sources={name: {"seconds": r["seconds"],
                          "ptxas": [line.strip() for line in r["log"].splitlines()
                                    if "registers" in line or "spill" in line]}
@@ -3434,20 +3813,23 @@ def main() -> int:
     laps("introspection")
     grafted = pretrained_phase(ops, gpu, dev)
     laps("pretrained")
+    carla = carla_phase(ops, gpu, build_seconds)
+    laps("carla_tools")
 
     # the launches of the served paths: MMFN-rad's requests, the baselines'
     # ticks, the closed loop's four phase0 runs, the storyboard and the
     # scenario runner, the device world's forwards, phase0 runs and fleets,
     # the data path's validation and serving, the bench's pipeline steps and
     # fleets, bench_loop's soaks and fleet, the exported artifacts' forwards,
-    # introspection's fused forward, the pretrained run and the multi-process
+    # introspection's fused forward, the pretrained run, the multi-process
     # phase (its ranks report their own counts; the benchmark runner's legs
-    # launch in their own processes and are not counted here)
+    # launch in their own processes and are not counted here) and the CARLA
+    # glue's MMFN-rad runs and record_episode
     for b in baselines.values():
         for name, n in b["launches"].items():
             launches[name] += n
     for phase in (loop, scenes, world, data, benched, soaked, exported, looked, grafted,
-                  parallel):
+                  parallel, carla):
         for name, n in phase["launches"].items():
             launches[name] += n
 

@@ -10,11 +10,39 @@ from __future__ import annotations
 
 import math
 from collections import deque
+from typing import Tuple
 
 import numpy as np
 
 # meters per degree at the CARLA 0.9.10 reference latitude
 GPS_SCALE = np.array([111324.60662786, 111319.490945])
+EARTH_RADIUS_EQUA = 6378137.0
+
+
+def gps_to_location(latitude: float, longitude: float, altitude: float = 0.0,
+                    lat_ref: float = 0.0, lon_ref: float = 0.0) -> Tuple[float, float, float]:
+    """Inverse web-mercator GPS -> CARLA world (x, y, z).
+
+    Reference: from_gps (team_code/expert_agent/common/utils.py:125-152) — the
+    inverse of scenario_runner's _location_to_gps, including the y sign flip.
+    """
+    scale = math.cos(lat_ref * math.pi / 180.0)
+    basex = scale * math.pi * EARTH_RADIUS_EQUA / 180.0 * lon_ref
+    basey = scale * EARTH_RADIUS_EQUA * math.log(math.tan((90.0 + lat_ref) * math.pi / 360.0))
+    x = scale * math.pi * EARTH_RADIUS_EQUA / 180.0 * longitude - basex
+    y = scale * EARTH_RADIUS_EQUA * math.log(math.tan((90.0 + latitude) * math.pi / 360.0)) - basey
+    return x, -y, altitude
+
+
+def location_to_gps(x: float, y: float, z: float = 0.0,
+                    lat_ref: float = 0.0, lon_ref: float = 0.0) -> Tuple[float, float, float]:
+    """World -> GPS, matching leaderboard route_manipulation.py:21-41."""
+    scale = math.cos(lat_ref * math.pi / 180.0)
+    mx = scale * lon_ref * math.pi * EARTH_RADIUS_EQUA / 180.0 + x
+    my = scale * EARTH_RADIUS_EQUA * math.log(math.tan((90.0 + lat_ref) * math.pi / 360.0)) - y
+    lon = mx * 180.0 / (math.pi * EARTH_RADIUS_EQUA * scale)
+    lat = 360.0 * math.atan(math.exp(my / (EARTH_RADIUS_EQUA * scale))) / math.pi - 90.0
+    return lat, lon, z
 
 
 class RoutePlanner:

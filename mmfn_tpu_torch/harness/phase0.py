@@ -54,8 +54,15 @@ CUDA devices (one model replica and one stream each,
 ``device=cpu`` over N CPU entries, which is how the CPU tests hold it to the
 JAX CLI's split over its virtual devices.
 
-Refused: ``simulator: carla`` (the CARLA glue needs a CARLA server, and the
-port has none to drive).
+``simulator: carla`` drives a CARLA server through the port's glue
+(``harness/carla_glue.py``: XML routes only, as in the JAX CLI), with the
+same agents; it raises when the ``carla`` package is missing. Without a
+server, ``python -m mmfn_tpu_torch.harness.fake_carla --town NAME=<xodr>
+...`` runs this CLI against the port's in-process mock of the carla API.
+The first model agent a run builds first builds the CUDA kernels
+(``utils/compile_cache.py``; nothing on a machine without CUDA), so that no
+tick waits for ``nvcc``, and under ``simulator: carla`` one forward of
+zeros warms the model before the glue's first tick.
 
 Usage:
     python -m mmfn_tpu_torch.harness.phase0 --config run_steps/config/eval.yaml \\
@@ -72,11 +79,13 @@ import re
 import sys
 import time
 
+import numpy as np
 import torch
 
 from mmfn_tpu_torch.config import GlobalConfig
 from mmfn_tpu_torch.device import resolve_device
 from mmfn_tpu_torch.utils.cli import load_config
+from mmfn_tpu_torch.utils.compile_cache import enable_persistent_cache
 from mmfn_tpu_torch.utils.logging import bcolors as bc
 
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -91,14 +100,6 @@ FALLBACK_XODR = """<?xml version="1.0" standalone="yes"?>
 <right><lane id="-1" type="driving" level="false"><width sOffset="0.0" a="3.5" b="0.0" c="0.0" d="0.0"/></lane></right>
 </laneSection></lanes></road></OpenDRIVE>
 """
-
-
-def _refuse_unported(cfg) -> None:
-    agent = cfg.get("agent") or {}
-    if cfg.get("simulator", "fake") == "carla":
-        raise NotImplementedError("simulator: carla: the CARLA glue (the JAX package's "
-                                  "harness/carla_glue.py) needs a CARLA server; "
-                                  "mmfn_tpu_torch runs the fake world only")
 
 
 def fleet_devices(cfg, device: torch.device):
@@ -187,6 +188,7 @@ def build_agent(cfg, shared=None, route_index=None):
         from mmfn_tpu_torch.harness.agents.baseline import BaselineAgent
         from mmfn_tpu_torch.models.baselines import build_baseline
 
+        enable_persistent_cache()       # the kernels build before the first tick
         gconf = GlobalConfig(max_lanes=agent_cfg.get("max_lanes", 64))
         model = build_baseline(agent_type, gconf, torch.Generator().manual_seed(SEED),
                                device="cpu")
@@ -207,6 +209,7 @@ def build_agent(cfg, shared=None, route_index=None):
     variant = agent_cfg.get("variant", "vec")
     if "pipeline" not in shared:
         device = fleet_devices(cfg, device)
+        enable_persistent_cache()       # the kernels build before the first tick
         model = build_model(gconf, variant, torch.Generator().manual_seed(SEED), device="cpu")
         _load_weights(model, agent_cfg)
         if agent_cfg.get("device_world"):
@@ -225,6 +228,25 @@ def build_agent(cfg, shared=None, route_index=None):
                       "async_dispatch": agent_cfg.get("async_dispatch", False)})
 
 
+def warm_pipeline(shared) -> None:
+    """One forward of zeros through ``shared``'s model pipeline, once: the
+    CUDA context, cuBLAS and cuDNN start here rather than inside the CARLA
+    glue's first tick, which its 2 s watchdog guards."""
+    from mmfn_tpu_torch.harness.agents.pipeline import TorchPipeline
+
+    pipe = shared.get("pipeline")
+    if not isinstance(pipe, TorchPipeline) or shared.get("warm"):
+        return
+    cfg, res = pipe.config, pipe.config.input_resolution
+    image_only = pipe.variant == "img"
+    pipe(np.zeros((res, res, 3), np.uint8), np.zeros((8, 3), np.float32),
+         None if image_only else pipe.zero_lanes, None if image_only else 1,
+         np.zeros((cfg.radar_points, cfg.radar_features), np.float32),
+         np.zeros((res, res, 3), np.uint8) if image_only else None,
+         np.zeros(2, np.float32), 0.0)
+    shared["warm"] = True
+
+
 def main(argv=None) -> int:
     from mmfn_tpu_torch.harness.replay import (ClosedLoopRunner, background_traffic,
                                                plan_from_trajectory)
@@ -237,7 +259,6 @@ def main(argv=None) -> int:
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
-    _refuse_unported(cfg)
 
     endpoint = cfg.get("checkpoint", "results/eval.json")
     # OpenSCENARIO episodes (.xosc) take their route from the hero's init
@@ -251,6 +272,23 @@ def main(argv=None) -> int:
             indexer.resume(endpoint)
     if cfg.get("resume"):
         statistics.resume(endpoint)
+
+    if cfg.get("simulator", "fake") == "carla":
+        if is_xosc:
+            raise SystemExit("OpenSCENARIO routes are supported by the fake "
+                             "world; the CARLA path runs XML routes "
+                             "(srunner owns .xosc there)")
+        from mmfn_tpu_torch.harness.carla_glue import run_carla_evaluation
+
+        shared = {}
+
+        def build_warm_agent(cfg):
+            agent = build_agent(cfg, shared)
+            warm_pipeline(shared)
+            return agent
+
+        run_carla_evaluation(cfg, indexer, statistics, build_warm_agent, endpoint)
+        return 0
 
     # the fake world's map: `map:` names an OpenDRIVE file; default is a
     # straight road. Vectorized once, so the outside-lanes penalty and the

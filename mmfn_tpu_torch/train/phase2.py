@@ -61,6 +61,7 @@ from mmfn_tpu_torch.models.registry import get_entry_point
 from mmfn_tpu_torch.parallel import mesh as pmesh
 from mmfn_tpu_torch.train.engine import Engine
 from mmfn_tpu_torch.utils.cli import load_config
+from mmfn_tpu_torch.utils.compile_cache import enable_persistent_cache
 from mmfn_tpu_torch.utils.logging import MetricsLogger, bcolors as bc
 from mmfn_tpu_torch.utils.seeding import seed_everything
 from mmfn_tpu_torch.utils.weights import load_imagenet_backbones
@@ -75,6 +76,8 @@ def main(argv=None) -> int:
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
+    # the kernels build before the first step is timed (no-op without CUDA)
+    enable_persistent_cache()
     distributed = bool(cfg.get("multi_host")) or pmesh.torchrun_environment()
     try:
         return _run(cfg, distributed)

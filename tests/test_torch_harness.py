@@ -17,12 +17,13 @@ fake world, the scoring core, the map, the birdview and the phase0 CLI.
   equality. ``fill_poly`` of a polygon that leaves the image is held on the
   image's inner rows and columns (its docstring says why).
 - CLI: the port's phase0 writes the same checkpoint records as the JAX CLI
-  for ``agent.type=npc``, serves an MMFN on ``device=cpu``, and refuses
-  ``simulator: carla`` (no CARLA server) and ``agent.fleet_devices`` > 1
-  (its ROADMAP item); the collection options are held against the JAX CLI
-  in tests/test_torch_collect.py, ``.xosc`` routes and ``record`` in
+  for ``agent.type=npc``, serves an MMFN on ``device=cpu``, and exits on
+  an ``agent.fleet_devices`` larger than the devices visible; the
+  collection options are held against the JAX CLI in
+  tests/test_torch_collect.py, ``.xosc`` routes and ``record`` in
   tests/test_torch_scenarios.py, ``agent.type=remote`` in
-  tests/test_torch_remote.py.
+  tests/test_torch_remote.py, ``simulator: carla`` in
+  tests/test_torch_carla_glue.py.
 
 The map tool is ``native/rough_map_node.cpp``, built with g++ into this
 module's own temporary directory (not the shared ``native/build/``).
@@ -412,16 +413,6 @@ def test_phase0_serves_an_mmfn_on_the_cpu(map_tool, tmp_path):
     assert records[0]["status"].startswith(("Failed", "Completed"))
     assert np.isfinite(records[0]["scores"]["score_composed"])
     assert records[0]["meta"]["duration_game"] == pytest.approx(0.3)
-
-
-@pytest.mark.parametrize("override, match", [
-    ("simulator=carla", "the CARLA glue .* needs a CARLA server"),
-], ids=lambda v: v.split("=")[0] if "=" in v else v)
-def test_phase0_refuses_unported_options(tmp_path, override, match):
-    with pytest.raises(NotImplementedError, match=match):
-        phase0.main(["--config", EVAL_YAML, "resume=false",
-                     "checkpoint=" + str(tmp_path / "x.json"), override])
-    assert not (tmp_path / "x.json").exists()
 
 
 def test_phase0_fleet_devices_exits_when_too_few_are_visible(map_tool, tmp_path, monkeypatch):
