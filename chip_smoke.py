@@ -24,7 +24,8 @@ Phases, in order; any failure exits non-zero before the last line:
      be the transposed view of a contiguous (B, T, H, D) buffer;
   4. serve full-width MMFN-rad (GlobalConfig defaults: n_layer 8, 256 px,
      64 lanes, 2 x 32,768 points per tick, attn_impl "pallas"; weights from a
-     seeded generator) through TorchPipeline: 3 batch-1 requests and one
+     seeded generator) through TorchPipeline, which replays CUDA graphs
+     after each key's first call (its warm-up): 3 batch-1 requests and one
      fleet of 8, with the launch counters set to 0 just before and read just
      after. Waypoints must be finite, (4, 2) and (8, 4, 2), with 32 attention
      launches and 1 BEV launch per forward, and must agree with the same
@@ -32,6 +33,14 @@ Phases, in order; any failure exits non-zero before the last line:
      versions of everything on the CPU;
   5. time batch-1 request latency and batch-8 frames/s, and profile both
      (torch.profiler: device busy time, idle share, top kernels);
+  5b. the graphs (``serve_graphs``): replies at batch 1 and for the fleet
+     of 8 against the same model run eagerly (``cuda_graphs=False``) within
+     rtol 1e-4 / atol 2e-3 (expected equal), 1 BEV and 32 attention launches
+     counted for one replay, one capture anew under TF32 and one under the
+     plain attention, each reply within that limit of the eager one under
+     the same state and different from the f32 kernels' reply, as the eager
+     one is; the p50 and p90 of 200 requests each, eager and graph in turns
+     of 25; the graph pool's bytes and the card's name and power limit;
   6. serve the AIM, CILRS and TransFuser baselines at full width (the same
      config and seed) through the port's ``BaselineAgent``: 4 ticks of
      synthetic sensors (a 300x400 BGRA camera, gps, imu, speed; for
@@ -267,6 +276,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -545,6 +555,120 @@ def serve(cfg, dev, ops, rng):
     np.testing.assert_allclose(singles[0], plain_gpu, **WAYPOINT_TOL)
     np.testing.assert_allclose(singles[0], plain_cpu, **CPU_TOL)
     return pipe, payloads, launches
+
+
+GRAPH_REQUESTS = 200              # timed batch-1 requests each, graph and eager
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 in cuBLAS and cuDNN while the block lasts."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def serve_graphs(cfg, dev, ops, pipe, payloads, gpu):
+    """The served forward replayed from CUDA graphs (``pipe``, whose batch-1
+    and fleet-of-8 graphs ``serve`` captured) against the same model run
+    eagerly on the card (``cuda_graphs=False``): the replies at batch 1 and
+    for the fleet of 8 (expected equal; required within WAYPOINT_TOL), the
+    launches of one replay with the counters set to 0 just before and read
+    just after (1 and 32), a capture anew under TF32 and under the plain
+    attention (in a pipeline of their own: ``serve`` already captured the
+    plain attention's graph in ``pipe``), each reply agreeing with the eager
+    one under the same state and differing from the f32 kernels' reply as
+    the eager one does, the
+    host-clock latency of GRAPH_REQUESTS requests each, eager and graph in
+    turns of 25 (graph, eager, eager, graph, ...), and the pool's bytes."""
+    from mmfn_tpu_torch.harness.agents import TorchPipeline
+
+    eager = TorchPipeline(pipe.model, cfg, device=dev, cuda_graphs=False)
+    graphs = pipe.graphs[0]
+    require(graphs is not None and eager.graphs == [None], "graphs on the card, eager on request")
+    for p in payloads:                    # every key captured before anything is counted
+        pipe(*call_args(p))
+    pipe.dispatch_fleet(payloads).cpu()
+    captures = graphs.captures
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        return out, {name: k.launches for name, k in ops.KERNELS.items()}
+
+    want = {"bev_hist": 1, "fused_attention": 4 * cfg.n_layer}
+    total = {name: 0 for name in ops.KERNELS}
+    diffs = []
+    for p in payloads:
+        got, launches = counted(lambda: pipe(*call_args(p)))
+        require(launches == want, f"one batch-1 replay launches {want}: {launches}")
+        diffs.append(float(np.abs(got - eager(*call_args(p))).max()))
+        np.testing.assert_allclose(got, eager(*call_args(p)), **WAYPOINT_TOL)
+        for k, v in launches.items():
+            total[k] += v
+    fleet, fleet_launches = counted(lambda: pipe.dispatch_fleet(payloads).cpu().numpy())
+    require(fleet_launches == want, f"one fleet replay launches {want}: {fleet_launches}")
+    for k, v in fleet_launches.items():
+        total[k] += v
+    eager_fleet = eager.dispatch_fleet(payloads).cpu().numpy()
+    np.testing.assert_allclose(fleet, eager_fleet, **WAYPOINT_TOL)
+    require(graphs.captures == captures, "the replies above were replays")
+
+    # a pipeline of its own, so that each state's graph is new to it
+    fresh = TorchPipeline(pipe.model, cfg, device=dev)
+    counted_graphs = fresh.graphs[0]
+    args = call_args(payloads[0])
+    f32 = [fresh(*args) for _ in range(2)][-1]            # a capture, then a replay
+    states = {}
+    for name, state in (("tf32", tf32_on), ("plain_attention", lambda: plain_attention(pipe.model))):
+        before = counted_graphs.captures
+        with state():
+            first = fresh(*args)          # the warm-up of a new graph
+            replayed = fresh(*args)
+            eager_reply = eager(*args)
+        require(counted_graphs.captures == before + 1, f"{name}: one capture anew")
+        require(float(np.abs(fresh(*args) - f32).max()) == 0.0
+                and counted_graphs.captures == before + 1,
+                f"{name}: back outside, the f32 kernels' graph replays")
+        graph_diff = float(np.abs(replayed - f32).max())
+        eager_diff = float(np.abs(eager_reply - eager(*args)).max())
+        states[name] = {"graph_vs_eager": float(np.abs(replayed - eager_reply).max()),
+                        "warmup_vs_replay": float(np.abs(first - replayed).max()),
+                        "graph_vs_f32_kernels": graph_diff, "eager_vs_f32_kernels": eager_diff}
+        np.testing.assert_allclose(replayed, eager_reply, **WAYPOINT_TOL)
+        require(graph_diff > 0.0 and eager_diff > 0.0,
+                f"{name}: the graph's reply differs from the f32 kernels' as the eager one does: "
+                f"{states[name]}")
+    del fresh
+
+    lat = {"graph": [], "eager": []}
+    for turn in range(2 * GRAPH_REQUESTS // 25):
+        name = "graph" if turn % 4 in (0, 3) else "eager"
+        served = pipe if name == "graph" else eager
+        for i in range(25):
+            a = call_args(payloads[(turn * 25 + i) % len(payloads)])
+            t0 = time.perf_counter()
+            served(*a)
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    timing = {}
+    for name, ms in lat.items():
+        ms.sort()
+        timing[name] = {"requests": len(ms), "p50_ms": statistics.median(ms),
+                        "p90_ms": ms[math.ceil(0.9 * len(ms)) - 1]}
+    out = {"gpu": gpu, "max_abs_graph_vs_eager_batch1": max(diffs),
+           "max_abs_graph_vs_eager_fleet8": float(np.abs(fleet - eager_fleet).max()),
+           "equal_batch1": max(diffs) == 0.0,
+           "equal_fleet8": bool(np.array_equal(fleet, eager_fleet)),
+           "launches_per_replay": {"batch1": launches, "fleet8": fleet_launches},
+           "states": states, "latency": timing, "graphs": len(graphs),
+           "captures": graphs.captures, "pool_bytes": graphs.pool_bytes(),
+           "launches": total}
+    emit("serve_graphs", **out)
+    del eager
+    return out
 
 
 def time_serving(pipe, payloads):
@@ -3445,7 +3569,8 @@ class GlueProbe(Timed):
     the kernel launches of each tick that dispatched a forward; the pipeline;
     the last ``finish_step``'s payload and waypoints (the input the glue
     handed the agent, as the pipeline takes it, and what it steered by); the
-    threads the kernels were launched from; and the glue's sensor reader
+    threads the kernels were launched from, eagerly or by a graph replay
+    (``ForwardGraphs.run``); and the glue's sensor reader
     threads alive on the first tick."""
 
     def __init__(self, ops, glue=None):
@@ -3460,6 +3585,7 @@ class GlueProbe(Timed):
 
     def __enter__(self):
         from mmfn_tpu_torch.harness.agents import MMFNAgent, TorchPipeline
+        from mmfn_tpu_torch.harness.agents.graphs import ForwardGraphs
         from mmfn_tpu_torch.harness.watchdog import Watchdog
         from mmfn_tpu_torch.ops._cuda import CudaKernel
         probe = self
@@ -3514,6 +3640,7 @@ class GlueProbe(Timed):
         self._wrap(MMFNAgent, "finish_step", finish_step)
         self._wrap(TorchPipeline, "dispatch", dispatch)
         self._wrap(CudaKernel, "launch", launch)
+        self._wrap(ForwardGraphs, "run", launch)     # a replay launches its kernels
         return super().__enter__()
 
     def tick_ms(self) -> dict:
@@ -3770,8 +3897,10 @@ def main() -> int:
     pipe, payloads, launches = serve(cfg, dev, ops, rng)
     serving = time_serving(pipe, payloads)
     prof = profile_serving(pipe, payloads)
-    del pipe
     laps("serve")
+    graphed = serve_graphs(cfg, dev, ops, pipe, payloads, gpu)
+    del pipe
+    laps("serve_graphs")
     baselines = serve_baselines(cfg, dev, ops, rng, gpu)
     laps("baselines")
     rows = time_kernels(lidar, attention, dev, rng)
@@ -3828,8 +3957,8 @@ def main() -> int:
     for b in baselines.values():
         for name, n in b["launches"].items():
             launches[name] += n
-    for phase in (loop, scenes, world, data, benched, soaked, exported, looked, grafted,
-                  parallel, carla):
+    for phase in (graphed, loop, scenes, world, data, benched, soaked, exported, looked,
+                  grafted, parallel, carla):
         for name, n in phase["launches"].items():
             launches[name] += n
 

@@ -32,13 +32,23 @@ device synchronise; ``HostCopy`` then fetches every shard's rows into one
 pinned buffer. The same card may be named twice, as two shards on two
 streams: that is how a one-card machine checks the split, not a way to go
 faster. ``dispatch`` (one sample) runs on the first replica.
+
+CUDA graphs (``harness/agents/graphs.py``). On a CUDA device ``dispatch``
+and ``dispatch_fleet`` replay a captured graph of the forward (the BEV,
+the radar adjacency, the image normalization and the MMFN forward), one per
+shard, input layout and process state, in place of issuing it op by op;
+the packed copy writes into the graph's static input buffer. A change of
+TF32, autocast, ``attn_impl`` or a patched op function captures anew.
+``cuda_graphs=False`` runs the forward eagerly on the card; a CPU pipeline
+always runs it eagerly.
 """
 
 from __future__ import annotations
 
 import copy
 import functools
-from typing import Callable, List, Optional, Sequence
+import math
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +56,8 @@ import torch
 from mmfn_tpu_torch.config import GlobalConfig
 from mmfn_tpu_torch.data.batch import Batch
 from mmfn_tpu_torch.device import resolve_device
+from mmfn_tpu_torch.harness.agents.graphs import ForwardGraphs, Layout, process_state
+from mmfn_tpu_torch.models import gpt
 from mmfn_tpu_torch.ops.lidar import (HIST_MAX_PER_PIXEL, bev_counts_np,
                                       lidar_to_histogram_features, pad_points)
 from mmfn_tpu_torch.ops.radar import radar_adjacency
@@ -83,6 +95,41 @@ class HostCopy:
         if self._done is not None:
             self._done.synchronize()
         return self._host.numpy()
+
+
+def packed_offsets(layout: Layout) -> Tuple[List[Optional[int]], int]:
+    """Each input's byte offset in one packed buffer (None kept), each
+    range 16-byte aligned, and the buffer's total bytes."""
+    offsets, total = [], 0
+    for item in layout:
+        if item is None:
+            offsets.append(None)
+            continue
+        shape, dtype = item
+        offsets.append(total)
+        total += -(-math.prod(shape) * dtype.itemsize // _ALIGN) * _ALIGN
+    return offsets, total
+
+
+def byte_views(buf: torch.Tensor, layout: Layout, offsets) -> List[Optional[torch.Tensor]]:
+    """The inputs of ``layout`` as views of the packed byte buffer ``buf``."""
+    out = []
+    for item, off in zip(layout, offsets):
+        if item is None:
+            out.append(None)
+            continue
+        shape, dtype = item
+        seg = buf[off:off + math.prod(shape) * dtype.itemsize]
+        out.append(seg.view(dtype).view(shape))
+    return out
+
+
+def device_inputs(layout: Layout, device: torch.device) -> tuple:
+    """A graph's static inputs of ``layout`` on ``device``: (one packed byte
+    buffer, its views)."""
+    offsets, total = packed_offsets(layout)
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    return buf, byte_views(buf, layout, offsets)
 
 
 def _zero_row(row: tuple) -> tuple:
@@ -184,12 +231,14 @@ class TorchPipeline:
     ``__call__``, ``dispatch_fleet`` and ``zero_lanes``. ``dispatch`` and
     ``dispatch_fleet`` return the device tensor without waiting for it.
     ``device``: one device, or a list of them to split ``dispatch_fleet``
-    over (module docstring; the JAX pipeline's ``mesh``).
+    over (module docstring; the JAX pipeline's ``mesh``). ``cuda_graphs``:
+    replay captured CUDA graphs on a CUDA device (``graphs`` holds each
+    shard's, None where the forward runs eagerly).
     """
 
     def __init__(self, model: torch.nn.Module, config: GlobalConfig,
                  points_per_sweep: int = MAX_SWEEP_POINTS, host_bev: bool = False,
-                 packed: bool = True, device=None):
+                 packed: bool = True, device=None, cuda_graphs: bool = True):
         self.replicas = Replicas(model, resolve_devices(device))
         self.device = self.replicas.devices[0]
         self.model = self.replicas.models[0]
@@ -200,6 +249,11 @@ class TorchPipeline:
         self.packed = packed
         # a shard's total bytes -> (host buffer, copy-done event or None)
         self._staging = [{} for _ in self.replicas.devices]
+        self.graphs = [ForwardGraphs(d, functools.partial(device_inputs, device=d), stream)
+                       if cuda_graphs and d.type == "cuda" else None
+                       for d, stream in zip(self.replicas.devices, self.replicas.streams)]
+        self._attention = [[m for m in replica.modules() if isinstance(m, gpt.SelfAttention)]
+                           for replica in self.replicas.models]
 
     # ---- host side ----
 
@@ -230,48 +284,56 @@ class TorchPipeline:
 
     def _to_device(self, rows: Sequence[tuple], shard: int = 0) -> List[Optional[torch.Tensor]]:
         """Per-sample transport tuples -> batched tensors on shard
-        ``shard``'s device (None kept)."""
+        ``shard``'s device (None kept). Packed, with graphs, the copy writes
+        the static inputs of the shard's graphs; otherwise the tensors are
+        fresh (unpacked, a graph's replay copies them in)."""
         n = len(rows)
         cols = list(zip(*rows))
         device = self.replicas.devices[shard]
         if not self.packed:
             return [None if col[0] is None else
                     torch.from_numpy(np.stack(col)).to(device) for col in cols]
-        layout, total = [], 0
-        for col in cols:
-            if col[0] is None:
-                layout.append(None)
-                continue
-            a = col[0]
-            layout.append((total, a.nbytes, a.shape, a.dtype))
-            total += -(-n * a.nbytes // _ALIGN) * _ALIGN
+        layout = tuple(None if col[0] is None else
+                       ((n,) + col[0].shape, _TORCH_DTYPES[col[0].dtype]) for col in cols)
+        offsets, total = packed_offsets(layout)
         host, done = staging_buffer(self._staging[shard], total, device)
         host_np = host.numpy()
-        for col, item in zip(cols, layout):
-            if item is None:
+        for col, off in zip(cols, offsets):
+            if off is None:
                 continue
-            off, row_bytes, _, _ = item
+            row_bytes = col[0].nbytes
             for i, a in enumerate(col):
                 host_np[off + i * row_bytes:off + (i + 1) * row_bytes] = \
                     np.ascontiguousarray(a).view(np.uint8).reshape(-1)
-        dev = host.to(device, non_blocking=True)
+        graphs = self.graphs[shard]
+        if graphs is None:
+            out = byte_views(host.to(device, non_blocking=True), layout, offsets)
+        else:
+            buf, out = graphs.inputs(layout)
+            buf.copy_(host, non_blocking=True)
         if done is not None:
             done.record()
-        out = []
-        for item in layout:
-            if item is None:
-                out.append(None)
-                continue
-            off, row_bytes, shape, dtype = item
-            seg = dev[off:off + n * row_bytes]
-            out.append(seg.view(_TORCH_DTYPES[dtype]).view((n,) + tuple(shape)))
-        return out
+        return list(out)
 
     # ---- device side ----
 
     @torch.inference_mode()
     def _apply_batched(self, image, points, lanes, lane_num, radar, map_img,
                        target_point, velocity, shard: int = 0) -> torch.Tensor:
+        """The forward on shard ``shard``'s inputs: replayed from its graph
+        on a CUDA device (module docstring), else run eagerly."""
+        inputs = (image, points, lanes, lane_num, radar, map_img, target_point, velocity)
+        graphs = self.graphs[shard]
+        if graphs is None:
+            return self._forward(shard, *inputs)
+        model = self.replicas.models[shard]
+        state = process_state(graphs.device.type, model, self._attention[shard],
+                              (lidar_to_histogram_features, gpt.fused_attention))
+        return graphs.run(inputs, state, functools.partial(self._forward, shard))
+
+    def _forward(self, shard, image, points, lanes, lane_num, radar, map_img,
+                 target_point, velocity) -> torch.Tensor:
+        """The eager forward: what a graph captures."""
         if self.host_bev:
             bev = points.to(torch.float32) / HIST_MAX_PER_PIXEL
         else:
