@@ -245,7 +245,17 @@ Phases, in order; any failure exits non-zero before the last line:
      10 frames of 256 x 256 at 200 ms that loops, read by walking its
      blocks; (d) ``viz_attention`` for full-width MMFN-rad (272 PNGs) and
      ``render_birdview_samples`` (3 panels) into a temporary directory,
-     every PNG decoded by ``data/png.py``.
+     every PNG decoded by ``data/png.py``;
+  21. the round-5 recipe cut to size (``scale_r05``, ``tools/scale_r05.py``):
+     ``scale_r05.collect`` on the cross-town leg in ClearNoon with all the
+     recipe's overrides (scenarios, 10 background vehicles, 10 offset
+     repetitions of 3 routes), ``R05_TICKS`` ticks a route, its route-runs
+     split over ``R05_JOBS`` phase0 processes (``route_shard``); phase 1 on that
+     pool (its own process, the pool in both splits); then the recipe's
+     ``mmfn_rad`` run (batch 96, ``remat=true``, bfloat16) for
+     ``R05_EPOCHS`` epochs on the card through ``scale_r05.train``: the
+     frames, phase 1's seconds, the last epoch's samples/s, the peak card
+     memory and the losses (finite), and a ``best_model.pth``.
 
 Output: JSON lines per phase (the summary has the device ops per batch-1
 forward; ``baseline_summary`` the baselines' tick latency and device ops
@@ -3858,6 +3868,80 @@ def carla_phase(ops, gpu, build_seconds):
     return {"launches": launches}
 
 
+R05_TICKS = 110                   # ticks a route: 10 frames, 4 samples a route-run, 120 in all
+R05_EPOCHS = 2                    # of a step or two each; the first warms up
+R05_JOBS = 8                      # phase0 processes sharing the leg's 30 route-runs
+R05_COLLECT_EXTRA = []            # CPU rehearsal: ["agent.rmap_tool=<tool>"]
+R05_TRAIN_EXTRA = []              # CPU rehearsal: ["device=cpu", "model.n_layer=1"]
+
+
+@contextlib.contextmanager
+def output_to(path):
+    """This process's file descriptor 1, which its subprocesses inherit,
+    written to ``path`` while the block lasts."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def scale_r05_phase(gpu):
+    """The round-5 recipe's stages, each in its own process as the recipe
+    runs them, cut to one leg and a few steps (module docstring, 21)."""
+    from mmfn_tpu_torch.tools import scale_r05
+
+    with tempfile.TemporaryDirectory() as root:
+        log = os.path.join(root, "stages.log")
+        laps = Laps()
+        with output_to(log):
+            frames = scale_r05.collect(root, ["ClearNoon"], legs=["cross"],
+                                       extra=[f"max_ticks={R05_TICKS}", *R05_COLLECT_EXTRA],
+                                       jobs=R05_JOBS)
+            laps("collect")
+            # the held-out leg is not collected: the cross pool is both splits
+            scale_r05._run(scale_r05.phase1_command(root, ["ClearNoon"], [
+                "val_towns=[CrossClearNoon]"]))
+            laps("phase1")
+            best = scale_r05.train(root, ["ClearNoon"], runs=["mmfn_rad"], extra=[
+                f"epochs={R05_EPOCHS}", "val_every=1", *R05_TRAIN_EXTRA])
+            laps("train")
+        with open(log) as f:
+            text = f.read()
+        written = {m.group(1): (int(m.group(2)), float(m.group(3))) for m in re.finditer(
+            r"(train|eval): wrote (\d+) samples to \S+ \(([\d.]+)s\)", text)}
+        logdir = os.path.join(root, "log", "mmfn_rad")
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        cache = re.search(r"device data cache: ([\d.]+) GiB", text)
+    require(frames > 0, f"frames collected:\n{text[-3000:]}")
+    require("train" in written and written["train"][0] >= 96,
+            f"phase 1 wrote a training pool of one batch of 96 at least: {written}")
+    losses = [r["loss"] for r in rows if "loss" in r]
+    epoch_s = [r["epoch_minutes"] * 60 for r in rows if "epoch_minutes" in r]
+    peak = [r["peak_memory_gib"] for r in rows if "peak_memory_gib" in r]
+    require(len(losses) == R05_EPOCHS and all(math.isfinite(v) for v in losses),
+            f"finite training losses, one an epoch: {losses}")
+    require(best == [os.path.join(logdir, "best_model.pth")], f"best_model.pth: {best}")
+    require(bool(peak), "phase2 reports its peak card memory")
+    samples = written["train"][0] // 96 * 96
+    summary = {"gpu": gpu, "frames": frames, "phase1_samples": {k: v[0] for k, v in written.items()},
+               "phase1_seconds": {k: v[1] for k, v in written.items()},
+               "train_samples_per_s_last_epoch": samples / epoch_s[-1],
+               "epoch_seconds": epoch_s, "losses": losses,
+               "val_l1": [r["val_loss"] for r in rows if "val_loss" in r],
+               "peak_memory_gib": peak[-1],
+               "device_cache_gib": float(cache.group(1)) if cache else None,
+               "seconds": laps.seconds, "launches": {}}
+    emit("scale_r05", **summary)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA GPU", file=sys.stderr)
@@ -3944,6 +4028,9 @@ def main() -> int:
     laps("pretrained")
     carla = carla_phase(ops, gpu, build_seconds)
     laps("carla_tools")
+    torch.cuda.empty_cache()
+    scale_r05_phase(gpu)
+    laps("scale_r05")
 
     # the launches of the served paths: MMFN-rad's requests, the baselines'
     # ticks, the closed loop's four phase0 runs, the storyboard and the

@@ -52,6 +52,32 @@ def _frame_name(idx: int, ext: str) -> str:
     return f"{str(idx).zfill(4)}.{ext}"
 
 
+def _read_cache(path: str):
+    """A preload cache's contents, or None when it is absent or does not
+    parse (another process may be writing it, or was killed doing so)."""
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _write_cache(path: str, obj) -> None:
+    """Write a preload cache so that no reader sees it half written: dump to
+    a name of this process's own beside it, then rename it into place. A
+    read-only root (``OSError``) leaves the pool uncached."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(obj, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 class CarlaDataset:
     """Index + decode raw collected routes into training samples."""
 
@@ -75,9 +101,9 @@ class CarlaDataset:
 
     def _index_root(self, root: str, use_preload: bool) -> List[Dict]:
         preload = self._preload_path(root)
-        if use_preload and os.path.exists(preload):
-            with open(preload) as f:
-                return json.load(f)
+        cached = _read_cache(preload) if use_preload else None
+        if cached is not None:
+            return cached
 
         frames: List[Dict] = []
         routes = sorted(
@@ -98,11 +124,7 @@ class CarlaDataset:
                         for i in ids],
                 })
         if use_preload:
-            try:
-                with open(preload, "w") as f:
-                    json.dump(frames, f)
-            except OSError:
-                pass   # read-only dataset roots are fine, just un-cached
+            _write_cache(preload, frames)
         return frames
 
     def __len__(self) -> int:
@@ -198,18 +220,12 @@ class PreprocessedDataset:
 
     def __init__(self, root: str, use_preload: bool = True):
         preload = os.path.join(root, "preload_files.json")
-        if use_preload and os.path.exists(preload):
-            with open(preload) as f:
-                self.files = [os.path.join(root, f_) for f_ in json.load(f)]
-            return
-        names = sorted(f for f in os.listdir(root) if f.endswith(".pkl"))
+        names = _read_cache(preload) if use_preload else None
+        if names is None:
+            names = sorted(f for f in os.listdir(root) if f.endswith(".pkl"))
+            if use_preload:
+                _write_cache(preload, names)
         self.files = [os.path.join(root, f) for f in names]
-        if use_preload:
-            try:
-                with open(preload, "w") as f:
-                    json.dump(names, f)
-            except OSError:     # a read-only pool still loads, uncached
-                pass
 
     def __len__(self) -> int:
         return len(self.files)

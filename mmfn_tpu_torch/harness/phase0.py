@@ -36,12 +36,16 @@ repetitions start laterally offset); ``agent.n_layer``, ``agent.n_embd``,
 ``agent.model_path``, a directory holding the port's ``best_model.pth``
 (``train/engine.py``; random weights from seed 0 without one);
 ``agent.rmap_tool``, the map tool's path for the world's map and the agent's
-(``native/build/rough_map_node`` when absent). One key the JAX CLI lacks:
+(``native/build/rough_map_node`` when absent). Two keys the JAX CLI lacks:
 ``device`` (default: the CUDA device, and the run raises when there is none;
-``device=cpu`` runs the model on the CPU). A model agent serves its forward
-through ``TorchPipeline`` with ``host_bev`` off, so on the GPU each forward
-launches the BEV kernel (unless ``agent.host_bev=true``), and with
-``agent.attn_impl=pallas`` the attention kernel too. ``agent.device_world``
+``device=cpu`` runs the model on the CPU), and ``route_shard`` (``K/N``: of
+the route-runs, run those whose index is K modulo N, so that N processes,
+each with a checkpoint of its own, share a route set; an expert writes the
+frames one process would, ``route_NN`` by index; the fake world only). A
+model agent serves its forward through ``TorchPipeline`` with ``host_bev``
+off, so on the GPU each forward launches the BEV kernel (unless
+``agent.host_bev=true``), and with ``agent.attn_impl=pallas`` the attention
+kernel too. ``agent.device_world``
 serves it through ``DeviceWorldPipeline`` instead, in a world that ships
 compact ``world_state`` frames (``compact_sensors``): every sensor is
 synthesized on the device, and each forward launches the BEV kernel once
@@ -80,12 +84,9 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 from mmfn_tpu_torch.config import GlobalConfig
-from mmfn_tpu_torch.device import resolve_device
 from mmfn_tpu_torch.utils.cli import load_config
-from mmfn_tpu_torch.utils.compile_cache import enable_persistent_cache
 from mmfn_tpu_torch.utils.logging import bcolors as bc
 
 DEFAULT_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -111,6 +112,8 @@ def fleet_devices(cfg, device: torch.device):
         return device
     if device.type == "cpu":
         return [device] * n
+    import torch
+
     visible = torch.cuda.device_count()
     if visible < n:
         raise SystemExit(f"agent.fleet_devices={n} but only {visible} devices are visible")
@@ -183,6 +186,13 @@ def build_agent(cfg, shared=None, route_index=None):
                             ("stack_cmd", "sensors", "stepping", "socket", "step_timeout",
                              "connect_timeout", "env", "send_timeout")
                             if k in agent_cfg})
+    # the model agents: torch loads here, so that a run of the experts, the
+    # NPC driver or a remote stack (collection, scoring the expert) does without
+    import torch
+
+    from mmfn_tpu_torch.device import resolve_device
+    from mmfn_tpu_torch.utils.compile_cache import enable_persistent_cache
+
     device = resolve_device(cfg.get("device"))
     if agent_type in ("aim", "cilrs", "transfuser"):
         from mmfn_tpu_torch.harness.agents.baseline import BaselineAgent
@@ -265,7 +275,23 @@ def main(argv=None) -> int:
     # position and run their storyboard through OpenScenarioManager below
     is_xosc = str(cfg.get("routes", "")).endswith(".xosc")
     indexer = None
-    statistics = StatisticsManager()
+    shard = cfg.get("route_shard")
+    shard_k, shard_n = (int(v) for v in str(shard).split("/")) if shard else (0, 1)
+    if not 0 <= shard_k < shard_n:
+        raise SystemExit(f"route_shard={shard}: K/N with 0 <= K < N")
+
+    class ShardStatistics(StatisticsManager):
+        """The registry of a route shard: its route-runs K, K + N, K + 2N,
+        ... are its records 0, 1, 2, ..., each keeping its own index."""
+
+        def set_route(self, route_id, index: int) -> None:
+            super().set_route(route_id, index // shard_n)
+            self._records[index // shard_n].index = index
+
+        def compute_route_statistics(self, index: int, *args, **kwargs):
+            return super().compute_route_statistics(index // shard_n, *args, **kwargs)
+
+    statistics = ShardStatistics() if shard_n > 1 else StatisticsManager()
     if not is_xosc:
         indexer = RouteIndexer(cfg["routes"], repetitions=int(cfg.get("repetitions", 1)))
         if cfg.get("resume"):
@@ -278,6 +304,8 @@ def main(argv=None) -> int:
             raise SystemExit("OpenSCENARIO routes are supported by the fake "
                              "world; the CARLA path runs XML routes "
                              "(srunner owns .xosc there)")
+        if shard_n > 1:
+            raise SystemExit("route_shard splits the fake world's route-runs only")
         from mmfn_tpu_torch.harness.carla_glue import run_carla_evaluation
 
         shared = {}
@@ -397,7 +425,12 @@ def main(argv=None) -> int:
     while indexer.peek():
         configs = []
         while indexer.peek() and len(configs) < fleet_n:
-            configs.append(indexer.next())
+            config = indexer.next()
+            if config.index % shard_n == shard_k:
+                configs.append(config)
+        if not configs:
+            indexer.save_state(endpoint)
+            continue
         if len(configs) > 1:
             from mmfn_tpu_torch.harness.fleet import FleetRunner
 
@@ -453,15 +486,20 @@ def main(argv=None) -> int:
                 recorder.save(rec_path)
                 print(f"recording written to {rec_path}")
         for config, record in zip(configs, records):
-            statistics.save_record(record, config.index, endpoint)
+            # a shard's records are its own, in order: K, K + N, ...
+            statistics.save_record(record, config.index // shard_n, endpoint)
             print(format_route_record(record, title=f"route {config.route_id}"))
         indexer.save_state(endpoint)
 
-    global_record = statistics.compute_global_statistics(indexer.total)
-    statistics.save_global_record(global_record, indexer.total, endpoint)
+    total = len(range(shard_k, indexer.total, shard_n))
+    global_record = statistics.compute_global_statistics(total)
+    statistics.save_global_record(global_record, total, endpoint)
     print(format_global_summary(statistics.records))
     print(f"{bc.OKGREEN}driving score: {global_record.scores['score_composed']:.2f} "
           f"({time.time() - t0:.0f}s){bc.ENDC}")
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        print(f"peak card memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated")
     return 0
 
 

@@ -515,13 +515,15 @@ class Engine:
     # ---- full loop ------------------------------------------------------ #
 
     def fit(self, state: TrainState, train_batches_fn, val_batches_fn, epochs: int,
-            seed: int, val_every: int = 5, save_every: int = 20) -> TrainState:
+            seed: int, val_every: int = 5, save_every: int = 20,
+            log_every: int = 0) -> TrainState:
         """``train_batches_fn``/``val_batches_fn``: callables returning a
-        fresh iterable of batches for an epoch index."""
+        fresh iterable of batches for an epoch index; ``log_every`` as in
+        ``train``."""
         try:
             for epoch in range(self.cur_epoch, epochs):
                 t0 = time.time()
-                state = self.train(state, train_batches_fn(epoch), seed)
+                state = self.train(state, train_batches_fn(epoch), seed, log_every)
                 self.log_fn({"epoch_minutes": (time.time() - t0) / 60, "epoch": epoch})
                 if epoch % val_every == 0:
                     self.validate(state, val_batches_fn(epoch))

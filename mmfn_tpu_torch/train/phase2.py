@@ -10,8 +10,10 @@ rerun resumes from. ``seed`` seeds the initial weights, the data order
 (auto | true | false) keeps the dataset in GPU memory (``data/device_cache.py``);
 only the img variant stages the map raster.
 
-One key the JAX CLI lacks: ``device`` (default: the CUDA device; the run
-raises when there is none, and ``device=cpu`` trains on the CPU).
+Two keys the JAX CLI lacks: ``device`` (default: the CUDA device; the run
+raises when there is none, and ``device=cpu`` trains on the CPU), and
+``log_every`` (N > 0: every N-th step's loss goes to ``metrics.jsonl`` as
+``loss_iter``).
 ``pretrained_resnet34`` / ``pretrained_resnet18`` point at raw torchvision
 ``.pth`` files grafted into the ResNets before training or resuming
 (``utils/weights.py:load_imagenet_backbones``; CILRS takes the ResNet18).
@@ -50,6 +52,7 @@ import itertools
 import os
 import sys
 
+import torch
 import torch.distributed as dist
 
 from mmfn_tpu_torch.config import GlobalConfig
@@ -191,8 +194,14 @@ def _run(cfg, distributed: bool) -> int:
                            batches(val_set, val_cache, False),
                            epochs=int(cfg.get("epochs", 101)), seed=seed,
                            val_every=int(cfg.get("val_every", 5)),
-                           save_every=int(cfg.get("save_every", 20)))
+                           save_every=int(cfg.get("save_every", 20)),
+                           log_every=int(cfg.get("log_every", 0)))
         engine.save(state)
+        if device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            say(f"peak card memory: {peak:.3f} GiB allocated")
+            if logger is not None:
+                logger.log({"peak_memory_gib": peak})
     finally:
         if engine is not None:
             engine.finalize()

@@ -74,6 +74,20 @@ TRAIN_GRAD_BOUNDS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One torch thread while this module runs: the tests run beside other
+    workers, and a worker's default of one thread per core oversubscribes
+    the machine. Not two: at two threads the AIM agent's tick case ends its
+    largest waypoint (-664 m at random weights) 1.2e-4 of it away from the
+    JAX package's, past ``WAYPOINT_TOL``; one, four and eight threads stay
+    within it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _configs(**kw):
     kw = dict(n_layer=N_LAYER, max_lanes=LANES, input_resolution=RES, **kw)
     return JaxConfig(matmul_precision="highest", **kw), GlobalConfig(**kw)

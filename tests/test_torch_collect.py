@@ -32,6 +32,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from mmfn_tpu.config import GlobalConfig as JaxConfig
@@ -67,6 +68,17 @@ SCENARIOS = os.path.join(ROOT, "data", "scenarios", "fake_towns_scenarios.json")
 COLLECT_YAML = os.path.join(ROOT, "run_steps", "config", "collect.yaml")
 TRAJECTORY = [(0.0, 1.75, 0.0), (120.0, 1.75, 0.0)]
 TICKS = 200
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads while this module runs: the tests run beside
+    other workers, and a worker's default of one thread per core
+    oversubscribes the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

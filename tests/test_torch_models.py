@@ -40,6 +40,17 @@ HI = jax.lax.Precision.HIGHEST
 _CONST_LEAVES = ("scale", "bias", "pos_emb")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads while this module runs: the tests run beside
+    other workers, and a worker's default of one thread per core
+    oversubscribes the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randomise(tree, rng, stats=False):
     """Copy of a flax tree (numpy leaves) with constant-initialised leaves
     made random: BN mean/var in ``stats``, norm scales/biases and position

@@ -24,6 +24,17 @@ F32_BELOW_16 = float(np.nextafter(np.float32(16.0), np.float32(0.0)))
 F32_BELOW_8 = float(np.nextafter(np.float32(8.0), np.float32(0.0)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads while this module runs: the tests run beside
+    other workers, and a worker's default of one thread per core
+    oversubscribes the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cloud(rng, n):
     return rng.uniform(low=[-18, -26, -4], high=[18, 10, 2], size=(n, 3)).astype(np.float32)
 

@@ -35,6 +35,17 @@ MAX_LANES = 16
 PPS = 2048
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads while this module runs: the tests run beside
+    other workers, and a worker's default of one thread per core
+    oversubscribes the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     kw = dict(n_layer=1, max_lanes=MAX_LANES, attn_impl="pallas")

@@ -31,6 +31,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from mmfn_tpu.harness import metrics_log as jmetrics_log
 from mmfn_tpu.harness import recording as jrecording
@@ -55,6 +56,17 @@ SCENARIOS = os.path.join(ROOT, "data", "scenarios", "fake_towns_scenarios.json")
 METRICS = ("comfort", "criteria_filter", "distance_between_vehicles", "distance_to_lane_center")
 COPIES = os.path.join(ROOT, "mmfn_tpu_torch", "harness", "metric_examples")
 TICKS = 400
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads while this module runs: the tests run beside
+    other workers, and a worker's default of one thread per core
+    oversubscribes the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from mmfn_tpu.harness import replay as jreplay
 from mmfn_tpu.harness.agents import remote as jremote
@@ -40,6 +41,17 @@ PORT_STACK = f"{sys.executable} -m mmfn_tpu_torch.harness.agents.remote"
 JAX_STACK = f"{sys.executable} {os.path.join(ROOT, 'examples', 'remote_stack.py')}"
 EVAL_YAML = os.path.join(ROOT, "run_steps", "config", "eval.yaml")
 TICKS = 120
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads while this module runs: the tests run beside
+    other workers, and a worker's default of one thread per core
+    oversubscribes the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
 
 
 def _stack_env():

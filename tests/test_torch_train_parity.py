@@ -111,6 +111,17 @@ _FIELDS = ("image", "lidar_bev", "map_img", "lanes", "lane_num", "radar", "radar
            "target_point", "velocity", "waypoints", "command", "action")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads while this module runs: the tests run beside
+    other workers, and a worker's default of one thread per core
+    oversubscribes the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
+
 def _module(key, table):
     return next(prefix for prefix in table if key.startswith(prefix))
 
