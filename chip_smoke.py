@@ -199,8 +199,9 @@ Phases, in order; any failure exits non-zero before the last line:
   19. multi-process (``multi_process``): (a) the phase2 CLI under
      ``torch.distributed.run --nproc_per_node=1`` over NCCL with
      ``multi_host=true checkpoint_backend=orbax model.attn_impl=pallas``,
-     full-width MMFN-rad at batch 24 for 2 epochs on the data path's pools
-     (kept from phase 11), then resumed from the DCP directory for a third:
+     full-width MMFN-rad at batch 24 for ``MP_EPOCHS`` epoch on the data
+     path's pools (kept from phase 11), then resumed from the DCP directory
+     for one more:
      kernel 2 in every validation forward, ms a step over each epoch beside
      phase 11's one-process run on the same pools (epochs of a few steps:
      no rate is compared); (b) two ranks on cuda:0 over gloo (NCCL refuses
@@ -247,15 +248,18 @@ Phases, in order; any failure exits non-zero before the last line:
      ``render_birdview_samples`` (3 panels) into a temporary directory,
      every PNG decoded by ``data/png.py``;
   21. the round-5 recipe cut to size (``scale_r05``, ``tools/scale_r05.py``):
-     ``scale_r05.collect`` on the cross-town leg in ClearNoon with all the
-     recipe's overrides (scenarios, 10 background vehicles, 10 offset
-     repetitions of 3 routes), ``R05_TICKS`` ticks a route, its route-runs
-     split over ``R05_JOBS`` phase0 processes (``route_shard``); phase 1 on that
-     pool (its own process, the pool in both splits); then the recipe's
-     ``mmfn_rad`` run (batch 96, ``remat=true``, bfloat16) for
-     ``R05_EPOCHS`` epochs on the card through ``scale_r05.train``: the
-     frames, phase 1's seconds, the last epoch's samples/s, the peak card
-     memory and the losses (finite), and a ``best_model.pth``.
+     ``scale_r05.collect`` on the cross-town leg in ClearNoon with the
+     recipe's overrides (scenarios, 10 background vehicles, offset
+     repetitions of 3 routes) in one phase0 process as the recipe runs it,
+     cut to ``R05_REPETITIONS`` repetitions of ``R05_TICKS`` ticks a route;
+     it is host work, so it starts once the map tool is built (phase 7 on)
+     and runs beside the card's phases, in a process group of its own that
+     is stopped at exit; this phase waits for it, then runs phase 1 on that
+     pool (its own process, the pool in both splits); then
+     the recipe's ``mmfn_rad`` run (batch 96, ``remat=true``, bfloat16) for
+     ``R05_EPOCHS`` epoch on the card through ``scale_r05.train``: the
+     frames, phase 1's seconds and samples, the epoch's samples/s, the peak
+     card memory and the loss (finite), and a ``best_model.pth``.
 
 Output: JSON lines per phase (the summary has the device ops per batch-1
 forward; ``baseline_summary`` the baselines' tick latency and device ops
@@ -282,6 +286,7 @@ TF32 is off for matmuls and cuDNN convolutions throughout.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import io
@@ -3117,7 +3122,7 @@ def pretrained_phase(ops, gpu, dev):
 # multi-process
 # --------------------------------------------------------------------------- #
 
-MP_EPOCHS = 2                     # the NCCL run's epochs before its resume
+MP_EPOCHS = 1                     # the NCCL run's epochs before its resume
 MP_TIMEOUT = 600                  # seconds a torch.distributed.run may take
 MP_BATCH = 24                     # the two gloo ranks' global batch (12 a rank)
 MP_GRAD_REL = 0.1                 # worst relative L2 error of a parameter's gradient
@@ -3868,9 +3873,9 @@ def carla_phase(ops, gpu, build_seconds):
     return {"launches": launches}
 
 
-R05_TICKS = 110                   # ticks a route: 10 frames, 4 samples a route-run, 120 in all
-R05_EPOCHS = 2                    # of a step or two each; the first warms up
-R05_JOBS = 8                      # phase0 processes sharing the leg's 30 route-runs
+R05_REPETITIONS = 1               # of the leg's 10: 3 route-runs
+R05_TICKS = 440                   # ticks a route: ~43 frames, ~111 samples in all
+R05_EPOCHS = 1
 R05_COLLECT_EXTRA = []            # CPU rehearsal: ["agent.rmap_tool=<tool>"]
 R05_TRAIN_EXTRA = []              # CPU rehearsal: ["device=cpu", "model.n_layer=1"]
 
@@ -3891,37 +3896,63 @@ def output_to(path):
         os.close(saved)
 
 
-def scale_r05_phase(gpu):
+def scale_r05_collect():
+    """Start the recipe's cut collection leg (module docstring, 21) in a
+    process group of its own, its output in a log beside its data; returns
+    the process and the recipe's root. The group is stopped at exit."""
+    root = tempfile.mkdtemp(prefix="scale_r05_")
+    code = ("import json, sys; from mmfn_tpu_torch.tools import scale_r05; "
+            "legs = scale_r05.collect(sys.argv[1], ['ClearNoon'], legs=['cross'], "
+            "extra=sys.argv[2:]); json.dump(legs, open(sys.argv[1] + '/legs.json', 'w'))")
+    with open(os.path.join(root, "collect.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", code, root,
+                                 f"repetitions={R05_REPETITIONS}", f"max_ticks={R05_TICKS}",
+                                 *R05_COLLECT_EXTRA], stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, 15)
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    atexit.register(stop)
+    return proc, root
+
+
+def scale_r05_phase(gpu, collector):
     """The round-5 recipe's stages, each in its own process as the recipe
-    runs them, cut to one leg and a few steps (module docstring, 21)."""
+    runs them, cut to one short leg and one epoch (module docstring, 21):
+    waits for the collection ``scale_r05_collect`` started."""
     from mmfn_tpu_torch.tools import scale_r05
 
-    with tempfile.TemporaryDirectory() as root:
-        log = os.path.join(root, "stages.log")
-        laps = Laps()
-        with output_to(log):
-            frames = scale_r05.collect(root, ["ClearNoon"], legs=["cross"],
-                                       extra=[f"max_ticks={R05_TICKS}", *R05_COLLECT_EXTRA],
-                                       jobs=R05_JOBS)
-            laps("collect")
-            # the held-out leg is not collected: the cross pool is both splits
-            scale_r05._run(scale_r05.phase1_command(root, ["ClearNoon"], [
-                "val_towns=[CrossClearNoon]"]))
-            laps("phase1")
-            best = scale_r05.train(root, ["ClearNoon"], runs=["mmfn_rad"], extra=[
-                f"epochs={R05_EPOCHS}", "val_every=1", *R05_TRAIN_EXTRA])
-            laps("train")
-        with open(log) as f:
-            text = f.read()
-        written = {m.group(1): (int(m.group(2)), float(m.group(3))) for m in re.finditer(
-            r"(train|eval): wrote (\d+) samples to \S+ \(([\d.]+)s\)", text)}
-        logdir = os.path.join(root, "log", "mmfn_rad")
-        with open(os.path.join(logdir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-        cache = re.search(r"device data cache: ([\d.]+) GiB", text)
+    proc, root = collector
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    waited = time.perf_counter() - t0
+    with open(os.path.join(root, "collect.log")) as f:
+        text = f.read()
+    require(rc == 0, f"the recipe's collection exits 0, not {rc}:\n{text[-3000:]}")
+    with open(os.path.join(root, "legs.json")) as f:
+        legs = json.load(f)
+    log = os.path.join(root, "stages.log")
+    with output_to(log):
+        # the held-out leg is not collected: the cross pool is both splits
+        phase1_s = scale_r05._run(scale_r05.phase1_command(root, ["ClearNoon"], [
+            "val_towns=[CrossClearNoon]"]))
+        pools = scale_r05.pool_sizes(root)
+        stages = scale_r05.train(root, ["ClearNoon"], runs=["mmfn_rad"], extra=[
+            f"epochs={R05_EPOCHS}", "val_every=1", *R05_TRAIN_EXTRA])
+    with open(log) as f:
+        text += f.read()
+    logdir = os.path.join(root, "log", "mmfn_rad")
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    best = scale_r05.best_checkpoints(root)
+    shutil.rmtree(root, ignore_errors=True)
+    frames = sum(leg["frames"] for leg in legs)
     require(frames > 0, f"frames collected:\n{text[-3000:]}")
-    require("train" in written and written["train"][0] >= 96,
-            f"phase 1 wrote a training pool of one batch of 96 at least: {written}")
+    require(pools["train"] >= 96, f"phase 1 wrote a training pool of one batch of 96 at "
+                                  f"least: {pools}\n{text[-3000:]}")
     losses = [r["loss"] for r in rows if "loss" in r]
     epoch_s = [r["epoch_minutes"] * 60 for r in rows if "epoch_minutes" in r]
     peak = [r["peak_memory_gib"] for r in rows if "peak_memory_gib" in r]
@@ -3929,15 +3960,13 @@ def scale_r05_phase(gpu):
             f"finite training losses, one an epoch: {losses}")
     require(best == [os.path.join(logdir, "best_model.pth")], f"best_model.pth: {best}")
     require(bool(peak), "phase2 reports its peak card memory")
-    samples = written["train"][0] // 96 * 96
-    summary = {"gpu": gpu, "frames": frames, "phase1_samples": {k: v[0] for k, v in written.items()},
-               "phase1_seconds": {k: v[1] for k, v in written.items()},
-               "train_samples_per_s_last_epoch": samples / epoch_s[-1],
-               "epoch_seconds": epoch_s, "losses": losses,
-               "val_l1": [r["val_loss"] for r in rows if "val_loss" in r],
-               "peak_memory_gib": peak[-1],
-               "device_cache_gib": float(cache.group(1)) if cache else None,
-               "seconds": laps.seconds, "launches": {}}
+    summary = {"gpu": gpu, "frames": frames, "collect_seconds": legs[0]["seconds"],
+               "collect_waited_seconds": waited,
+               "phase1_samples": pools, "phase1_seconds": phase1_s,
+               "train_samples_per_s": pools["train"] // 96 * 96 / epoch_s[-1],
+               "epoch_seconds": epoch_s, "train_seconds": stages[0]["seconds"],
+               "losses": losses, "val_l1": [r["val_loss"] for r in rows if "val_loss" in r],
+               "peak_memory_gib": peak[-1], "launches": {}}
     emit("scale_r05", **summary)
     return summary
 
@@ -3990,6 +4019,7 @@ def main() -> int:
     rows = time_kernels(lidar, attention, dev, rng)
     laps("kernel_times")
     map_tool()
+    r05_collector = scale_r05_collect()
     laps("map_tool")
     loop = closed_loop(cfg, ops, gpu)
     laps("closed_loop")
@@ -4029,7 +4059,7 @@ def main() -> int:
     carla = carla_phase(ops, gpu, build_seconds)
     laps("carla_tools")
     torch.cuda.empty_cache()
-    scale_r05_phase(gpu)
+    scale_r05_phase(gpu, r05_collector)
     laps("scale_r05")
 
     # the launches of the served paths: MMFN-rad's requests, the baselines'

@@ -36,16 +36,12 @@ repetitions start laterally offset); ``agent.n_layer``, ``agent.n_embd``,
 ``agent.model_path``, a directory holding the port's ``best_model.pth``
 (``train/engine.py``; random weights from seed 0 without one);
 ``agent.rmap_tool``, the map tool's path for the world's map and the agent's
-(``native/build/rough_map_node`` when absent). Two keys the JAX CLI lacks:
+(``native/build/rough_map_node`` when absent). One key the JAX CLI lacks:
 ``device`` (default: the CUDA device, and the run raises when there is none;
-``device=cpu`` runs the model on the CPU), and ``route_shard`` (``K/N``: of
-the route-runs, run those whose index is K modulo N, so that N processes,
-each with a checkpoint of its own, share a route set; an expert writes the
-frames one process would, ``route_NN`` by index; the fake world only). A
-model agent serves its forward through ``TorchPipeline`` with ``host_bev``
-off, so on the GPU each forward launches the BEV kernel (unless
-``agent.host_bev=true``), and with ``agent.attn_impl=pallas`` the attention
-kernel too. ``agent.device_world``
+``device=cpu`` runs the model on the CPU). A model agent serves its forward
+through ``TorchPipeline`` with ``host_bev`` off, so on the GPU each forward
+launches the BEV kernel (unless ``agent.host_bev=true``), and with
+``agent.attn_impl=pallas`` the attention kernel too. ``agent.device_world``
 serves it through ``DeviceWorldPipeline`` instead, in a world that ships
 compact ``world_state`` frames (``compact_sensors``): every sensor is
 synthesized on the device, and each forward launches the BEV kernel once
@@ -275,23 +271,7 @@ def main(argv=None) -> int:
     # position and run their storyboard through OpenScenarioManager below
     is_xosc = str(cfg.get("routes", "")).endswith(".xosc")
     indexer = None
-    shard = cfg.get("route_shard")
-    shard_k, shard_n = (int(v) for v in str(shard).split("/")) if shard else (0, 1)
-    if not 0 <= shard_k < shard_n:
-        raise SystemExit(f"route_shard={shard}: K/N with 0 <= K < N")
-
-    class ShardStatistics(StatisticsManager):
-        """The registry of a route shard: its route-runs K, K + N, K + 2N,
-        ... are its records 0, 1, 2, ..., each keeping its own index."""
-
-        def set_route(self, route_id, index: int) -> None:
-            super().set_route(route_id, index // shard_n)
-            self._records[index // shard_n].index = index
-
-        def compute_route_statistics(self, index: int, *args, **kwargs):
-            return super().compute_route_statistics(index // shard_n, *args, **kwargs)
-
-    statistics = ShardStatistics() if shard_n > 1 else StatisticsManager()
+    statistics = StatisticsManager()
     if not is_xosc:
         indexer = RouteIndexer(cfg["routes"], repetitions=int(cfg.get("repetitions", 1)))
         if cfg.get("resume"):
@@ -304,8 +284,6 @@ def main(argv=None) -> int:
             raise SystemExit("OpenSCENARIO routes are supported by the fake "
                              "world; the CARLA path runs XML routes "
                              "(srunner owns .xosc there)")
-        if shard_n > 1:
-            raise SystemExit("route_shard splits the fake world's route-runs only")
         from mmfn_tpu_torch.harness.carla_glue import run_carla_evaluation
 
         shared = {}
@@ -425,12 +403,7 @@ def main(argv=None) -> int:
     while indexer.peek():
         configs = []
         while indexer.peek() and len(configs) < fleet_n:
-            config = indexer.next()
-            if config.index % shard_n == shard_k:
-                configs.append(config)
-        if not configs:
-            indexer.save_state(endpoint)
-            continue
+            configs.append(indexer.next())
         if len(configs) > 1:
             from mmfn_tpu_torch.harness.fleet import FleetRunner
 
@@ -486,14 +459,12 @@ def main(argv=None) -> int:
                 recorder.save(rec_path)
                 print(f"recording written to {rec_path}")
         for config, record in zip(configs, records):
-            # a shard's records are its own, in order: K, K + N, ...
-            statistics.save_record(record, config.index // shard_n, endpoint)
+            statistics.save_record(record, config.index, endpoint)
             print(format_route_record(record, title=f"route {config.route_id}"))
         indexer.save_state(endpoint)
 
-    total = len(range(shard_k, indexer.total, shard_n))
-    global_record = statistics.compute_global_statistics(total)
-    statistics.save_global_record(global_record, total, endpoint)
+    global_record = statistics.compute_global_statistics(indexer.total)
+    statistics.save_global_record(global_record, indexer.total, endpoint)
     print(format_global_summary(statistics.records))
     print(f"{bc.OKGREEN}driving score: {global_record.scores['score_composed']:.2f} "
           f"({time.time() - t0:.0f}s){bc.ENDC}")

@@ -32,19 +32,18 @@ Usage:
 The root is ``--root``, else ``$ROOT``, else ``/tmp/mmfn_r05``. From Python,
 ``collect(root, weathers)`` and ``train(root, weathers)`` take a subset of
 ``WEATHERS``; ``legs``, ``runs`` and ``extra`` (overrides appended to every
-command, such as ``max_ticks=100`` or ``epochs=2``) cut the recipe further,
-and ``collect(..., jobs=N)`` splits each leg's route-runs over N phase0
-processes (phase0's ``route_shard``), which write the frames one process
-writes.
+command, such as ``max_ticks=100`` or ``epochs=2``) cut the recipe further.
+Both return what each stage took: a leg's seconds and frames, phase 1's
+seconds and pool sizes, a training run's seconds.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import re
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 COLLECT_YAML = "run_steps/config/collect.yaml"
@@ -94,39 +93,21 @@ def data_folder(root: str) -> str:
     return os.path.join(root, "data", "mmfn")
 
 
-def collect_commands(root: str, weathers=WEATHERS, legs=None, extra=()):
-    """The phase0 command line of every collection leg, in the recipe's
-    order: each weather in turn, its legs in ``COLLECT_LEGS`` order
-    (``legs`` keeps the named ones)."""
-    subs = {"ROOT": root, "DATA": data_folder(root)}
-    return [[sys.executable, "-m", "mmfn_tpu_torch.harness.phase0", "--config", COLLECT_YAML,
-             *(o.format(W=w, **subs) for o in overrides), *extra]
-            for w in weathers
+def _legs(weathers, legs):
+    """(weather, leg, overrides) in the recipe's order: each weather in
+    turn, its legs in ``COLLECT_LEGS`` order (``legs`` keeps the named
+    ones)."""
+    return [(w, name, overrides) for w in weathers
             for name, overrides in COLLECT_LEGS if legs is None or name in legs]
 
 
-def route_runs(cmd) -> int:
-    """The route-runs of a phase0 command: the routes of its XML times its
-    repetitions."""
-    opts = dict(a.split("=", 1) for a in cmd if "=" in a and not a.startswith("-"))
-    with open(os.path.join(REPO, opts["routes"])) as f:
-        routes = len(re.findall(r"<route[\s>]", f.read()))
-    return routes * int(opts.get("repetitions", 1))
-
-
-def shard_commands(cmd, jobs: int):
-    """One leg's command as up to ``jobs`` commands that share its
-    route-runs (phase0's ``route_shard``), each with a checkpoint of its own
-    beside the leg's; together they write the leg's frames."""
-    n = min(jobs, route_runs(cmd))
-    if n <= 1:
-        return [cmd]
-    out = []
-    for k in range(n):
-        shard = [f"{a[:-5]}.shard{k}of{n}.json" if a.startswith("checkpoint=") else a
-                 for a in cmd]
-        out.append(shard + [f"route_shard={k}/{n}"])
-    return out
+def collect_commands(root: str, weathers=WEATHERS, legs=None, extra=()):
+    """The phase0 command line of every collection leg, in the recipe's
+    order."""
+    subs = {"ROOT": root, "DATA": data_folder(root)}
+    return [[sys.executable, "-m", "mmfn_tpu_torch.harness.phase0", "--config", COLLECT_YAML,
+             *(o.format(W=w, **subs) for o in overrides), *extra]
+            for w, _, overrides in _legs(weathers, legs)]
 
 
 def town_lists(weathers=WEATHERS):
@@ -150,46 +131,61 @@ def train_command(root: str, run, weathers=WEATHERS, extra=()):
             COMPUTE_DTYPE, *overrides, *extra]
 
 
-def _run(cmd) -> None:
+def _run(cmd) -> float:
     """One stage in its own process, from the repo's root (the recipe's
-    paths are relative to it); a failing stage ends the recipe."""
-    _run_all([cmd])
+    paths are relative to it); a failing stage ends the recipe. Returns its
+    seconds."""
+    print("+ " + " ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    subprocess.run(cmd, cwd=REPO, check=True)
+    return time.perf_counter() - t0
 
 
-def _run_all(cmds) -> None:
-    """Processes that run at once; a failing one ends the recipe."""
-    for cmd in cmds:
-        print("+ " + " ".join(cmd[1:]), flush=True)
-    procs = [subprocess.Popen(cmd, cwd=REPO) for cmd in cmds]
-    failed = [cmd for cmd, p in zip(cmds, procs) if p.wait() != 0]
-    if failed:
-        raise subprocess.CalledProcessError(1, failed[0])
-
-
-def frame_count(root: str) -> int:
-    """The frames collected under ``root``: one measurements JSON each."""
-    return sum(1 for d, _, files in os.walk(data_folder(root))
+def frame_count(folder: str) -> int:
+    """The frames collected under ``folder``: one measurements JSON each."""
+    return sum(1 for d, _, files in os.walk(folder)
                if os.path.basename(d) == "measurements"
                for f in files if f.endswith(".json"))
 
 
-def collect(root: str, weathers=WEATHERS, legs=None, extra=(), jobs: int = 1) -> int:
-    """Run every collection leg in turn, each on up to ``jobs`` processes
-    (``shard_commands``); returns the frames collected."""
+def pool_sizes(root: str) -> dict:
+    """The samples phase 1 wrote, by split: one pickle each."""
+    out = os.path.dirname(data_folder(root))
+    return {split: sum(f.endswith(".pkl") for f in os.listdir(
+        os.path.join(out, f"pro_{split}_fmmfn"))) for split in ("train", "eval")}
+
+
+def best_checkpoints(root: str):
+    """The ``best_model.pth`` of every run under ``<root>/log``."""
+    return sorted(os.path.join(d, f) for d, _, files in os.walk(os.path.join(root, "log"))
+                  for f in files if f == "best_model.pth")
+
+
+def collect(root: str, weathers=WEATHERS, legs=None, extra=()):
+    """Run every collection leg in turn; returns each leg's weather, name,
+    seconds and frames."""
     os.makedirs(data_folder(root), exist_ok=True)
-    for cmd in collect_commands(root, weathers, legs, extra):
-        _run_all(shard_commands(cmd, jobs))
-    frames = frame_count(root)
-    print(f"frames collected: {frames}")
-    return frames
+    done = []
+    for (w, name, _), cmd in zip(_legs(weathers, legs),
+                                 collect_commands(root, weathers, legs, extra)):
+        seconds = _run(cmd)
+        save = next(a for a in cmd if a.startswith("agent.data_save="))
+        frames = frame_count(save.split("=", 1)[1])
+        print(f"== {name} {w}: {frames} frames ({seconds:.1f}s)", flush=True)
+        done.append({"weather": w, "leg": name, "seconds": seconds, "frames": frames})
+    print(f"frames collected: {frame_count(data_folder(root))}")
+    return done
 
 
 def train(root: str, weathers=WEATHERS, runs=None, extra=()):
     """Phase 1 unless its pools exist, then each of ``TRAIN_RUNS`` (``runs``
-    keeps the named logdirs) that has no ``DONE`` marker; returns the paths
-    of the best checkpoints found under ``<root>/log``."""
+    keeps the named logdirs) that has no ``DONE`` marker; prints the best
+    checkpoints under ``<root>/log`` and returns each stage that ran with
+    its seconds (phase 1's with its pool sizes)."""
+    done = []
     if not os.path.isdir(os.path.join(os.path.dirname(data_folder(root)), "pro_train_fmmfn")):
-        _run(phase1_command(root, weathers))
+        seconds = _run(phase1_command(root, weathers))
+        done.append({"stage": "phase1", "seconds": seconds, **pool_sizes(root)})
     for run in TRAIN_RUNS:
         logdir = os.path.join(root, "log", run[1])
         if runs is not None and run[1] not in runs:
@@ -197,14 +193,12 @@ def train(root: str, weathers=WEATHERS, runs=None, extra=()):
         if os.path.exists(os.path.join(logdir, "DONE")):
             print(f"== {run[1]} already trained, skipping")
             continue
-        _run(train_command(root, run, weathers, extra))
+        done.append({"stage": run[1], "seconds": _run(train_command(root, run, weathers, extra))})
         open(os.path.join(logdir, "DONE"), "w").close()
-    best = sorted(os.path.join(d, f) for d, _, files in os.walk(os.path.join(root, "log"))
-                  for f in files if f == "best_model.pth")
     print("trained checkpoints:")
-    for path in best:
+    for path in best_checkpoints(root):
         print(path)
-    return best
+    return done
 
 
 def main(argv=None) -> int:

@@ -8,15 +8,13 @@ preload caches' writer, on the CPU.
 - One r05 collection leg with its whole override set (scenarios, 10
   background vehicles, offset repetitions, a rain weather), cut to 2
   repetitions and 20 ticks a route, through the port's phase0 and the JAX
-  CLI: equal checkpoint records and equal frame trees. The same leg split
-  over 4 phase0 processes (``route_shard``) writes what one process writes,
-  and a collection leg loads no torch.
+  CLI: equal checkpoint records and equal frame trees; a collection leg
+  loads no torch.
 - ``PreprocessedDataset`` and ``CarlaDataset`` list their pool again when
   their preload cache is empty or half written, and the cache writer never
   leaves a partial file under the cache's name.
-- ``tools/scale_r05_run.py``'s stages without their processes: the legs it
-  runs and the frames it counts, the byte comparison of two pools, and what
-  it reads from a training run's logs.
+- What ``collect`` and ``train`` report of each stage, without their
+  processes.
 """
 
 import json
@@ -34,7 +32,7 @@ from mmfn_tpu.mapping import rough_map as jax_rough_map
 from mmfn_tpu_torch.config import GlobalConfig
 from mmfn_tpu_torch.data import dataset
 from mmfn_tpu_torch.harness import phase0
-from mmfn_tpu_torch.tools import scale_r05, scale_r05_run
+from mmfn_tpu_torch.tools import scale_r05
 from tests.test_torch_collect import assert_trees_equal, jax_cli, map_tool  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -143,28 +141,73 @@ def test_train_runs_are_the_shell_scripts():
         "train_towns=[CrossClearNoon,LoopClearNoon]", "val_towns=[ValClearNoon]")
 
 
+def _phase1_pools(root, train=5, eval=2):
+    for split, n in (("train", train), ("eval", eval)):
+        _pool(os.path.join(root, "data", f"pro_{split}_fmmfn"), n)
+
+
 def test_train_skips_done_runs_and_existing_pools(tmp_path, monkeypatch):
     """phase1 is skipped once its training pool exists, a run with a DONE
-    marker is skipped, and each run that ends gets its marker."""
+    marker is skipped, and each run that ends gets its marker; each stage
+    that ran is reported with its seconds, phase 1's with its pools."""
     ran = []
-    monkeypatch.setattr(scale_r05, "_run", lambda cmd: ran.append(cmd))
+
+    def run(cmd):
+        ran.append(cmd)
+        if "mmfn_tpu_torch.data.phase1" in cmd:
+            _phase1_pools(root)
+        return 1.5
+    monkeypatch.setattr(scale_r05, "_run", run)
     root = str(tmp_path)
     os.makedirs(os.path.join(root, "log", "mmfn_vec"))
     open(os.path.join(root, "log", "mmfn_vec", "DONE"), "w").close()
     for name in ("mmfn_rad", "mmfn_img", "aim"):
         os.makedirs(os.path.join(root, "log", name))
     open(os.path.join(root, "log", "aim", "best_model.pth"), "w").close()
-    best = scale_r05.train(root, ["ClearNoon"], extra=["epochs=1"])
+    stages = scale_r05.train(root, ["ClearNoon"], extra=["epochs=1"])
     assert [c[c.index("-m") + 1] for c in ran] == ["mmfn_tpu_torch.data.phase1"] + \
         ["mmfn_tpu_torch.train.phase2"] * 3
     assert [c[-1] for c in ran[1:]] == ["epochs=1"] * 3
-    assert best == [os.path.join(root, "log", "aim", "best_model.pth")]
+    assert stages == [{"stage": "phase1", "seconds": 1.5, "train": 5, "eval": 2}] + [
+        {"stage": name, "seconds": 1.5} for name in ("mmfn_rad", "mmfn_img", "aim")]
+    assert scale_r05.best_checkpoints(root) == [
+        os.path.join(root, "log", "aim", "best_model.pth")]
     for name in ("mmfn_rad", "mmfn_img", "aim"):
         assert os.path.exists(os.path.join(root, "log", name, "DONE"))
-    os.makedirs(os.path.join(root, "data", "pro_train_fmmfn"))
     ran.clear()
-    scale_r05.train(root, ["ClearNoon"])
-    assert ran == []
+    assert scale_r05.train(root, ["ClearNoon"]) == [] and ran == []
+
+
+def test_collect_reports_each_leg(tmp_path, monkeypatch):
+    """Each leg in its own process, in the recipe's order, reported with its
+    weather, seconds and the frames in its own data folder."""
+    ran = []
+
+    def run(cmd):
+        ran.append(cmd)
+        save = next(a for a in cmd if a.startswith("agent.data_save=")).split("=", 1)[1]
+        meas = os.path.join(save, f"route_{len(ran):02d}", "measurements")
+        os.makedirs(meas)
+        for i in range(len(ran)):
+            open(os.path.join(meas, f"{i:04d}.json"), "w").close()
+        return 2.0
+    monkeypatch.setattr(scale_r05, "_run", run)
+    root = str(tmp_path)
+    done = scale_r05.collect(root, ["WetNoon", "ClearNoon"], legs=["cross", "val"],
+                             extra=["max_ticks=7"])
+    assert ran == scale_r05.collect_commands(root, ["WetNoon", "ClearNoon"],
+                                             legs=["cross", "val"], extra=["max_ticks=7"])
+    assert [(d["weather"], d["leg"], d["seconds"], d["frames"]) for d in done] == [
+        ("WetNoon", "cross", 2.0, 1), ("WetNoon", "val", 2.0, 2),
+        ("ClearNoon", "cross", 2.0, 3), ("ClearNoon", "val", 2.0, 4)]
+    assert scale_r05.frame_count(scale_r05.data_folder(root)) == 10
+
+
+def test_a_failing_stage_ends_the_recipe():
+    """``_run`` returns a stage's seconds, and raises when it fails."""
+    assert scale_r05._run([sys.executable, "-c", "pass"]) >= 0.0
+    with pytest.raises(subprocess.CalledProcessError):
+        scale_r05._run([sys.executable, "-c", "raise SystemExit(3)"])
 
 
 def test_cli_root_from_the_environment(monkeypatch):
@@ -220,38 +263,7 @@ def test_r05_leg_collects_like_the_jax_cli(map_tool, jax_cli, tmp_path, monkeypa
     assert sorted(os.listdir(got_root)) == routes == [f"route_{i:02d}" for i in range(6)]
     for route in routes:
         assert_trees_equal(os.path.join(got_root, route), os.path.join(want_root, route))
-    assert scale_r05.frame_count(str(tmp_path / "port")) == \
-        scale_r05.frame_count(str(tmp_path / "jax")) > 0
-
-
-def test_sharded_leg_writes_what_one_process_writes(map_tool, tmp_path, monkeypatch):
-    """The cross leg's 6 route-runs (2 repetitions, 20 ticks each) on 4
-    phase0 shards: the frame tree and every route's record of the leg run
-    in one process, each shard's records in its own checkpoint."""
-    monkeypatch.chdir(ROOT)
-    trees = {}
-    for who, jobs in (("one", 1), ("shards", 4)):
-        root = str(tmp_path / who)
-        leg = scale_r05.collect_commands(root, ["WetNoon"], legs=["cross"], extra=[
-            "repetitions=2", "max_ticks=20", "agent.rmap_tool=" + map_tool])[0]
-        cmds = scale_r05.shard_commands(leg, jobs)
-        assert len(cmds) == jobs
-        records = {}
-        for k, cmd in enumerate(cmds):
-            assert phase0.main(cmd[3:]) == 0
-            with open(scale_r05_run._override(cmd, "checkpoint")) as f:
-                for j, rec in enumerate(json.load(f)["_checkpoint"]["records"]):
-                    rec["meta"].pop("duration_system")
-                    records[k + j * len(cmds)] = rec
-        trees[who] = (records, os.path.join(scale_r05.data_folder(root), "CrossWetNoon_short"))
-    (one, one_root), (shards, shards_root) = trees["one"], trees["shards"]
-    assert sorted(one) == sorted(shards) == list(range(6))
-    assert [shards[i] for i in range(6)] == [one[i] for i in range(6)]
-    assert [r["index"] for r in one.values()] == list(range(6))
-    routes = sorted(os.listdir(one_root))
-    assert sorted(os.listdir(shards_root)) == routes and len(routes) == 6
-    for route in routes:
-        assert_trees_equal(os.path.join(shards_root, route), os.path.join(one_root, route))
+    assert scale_r05.frame_count(got_root) == scale_r05.frame_count(want_root) > 0
 
 
 def test_collection_loads_no_torch(map_tool, tmp_path):
@@ -263,14 +275,7 @@ def test_collection_loads_no_torch(map_tool, tmp_path):
         "max_ticks=12", "agent.rmap_tool=" + map_tool])[0]
     assert subprocess.run([sys.executable, "-c", code, *leg[3:]], cwd=ROOT,
                           capture_output=True).returncode == 0
-    assert scale_r05.frame_count(str(tmp_path)) == 1
-
-
-def test_route_shard_is_checked():
-    with pytest.raises(SystemExit, match="route_shard"):
-        phase0.main(["--config", os.path.join(ROOT, scale_r05.COLLECT_YAML),
-                     "route_shard=2/2", "resume=false", "max_ticks=1",
-                     "checkpoint=/dev/null"])
+    assert scale_r05.frame_count(scale_r05.data_folder(str(tmp_path))) == 1
 
 
 # --------------------------------------------------------------------------- #
@@ -347,79 +352,3 @@ def test_cache_writer_leaves_no_partial_file(tmp_path, monkeypatch, which):
     build()
     with open(cache) as f:
         assert json.load(f)
-
-
-# --------------------------------------------------------------------------- #
-# the recipe's runner and its report
-# --------------------------------------------------------------------------- #
-
-class _FakeRunner:
-    """Runner.run without processes: a collection leg writes ``frames``
-    measurement files into its data folder and a route checkpoint."""
-
-    def __init__(self, frames=3):
-        self.frames, self.stopped, self.names = frames, [], []
-
-    def run(self, name, cmd, log=None):
-        self.names.append(name)
-        data = scale_r05_run._override(cmd, "agent.data_save")
-        meas = os.path.join(data, "route_00", "measurements")
-        os.makedirs(meas, exist_ok=True)
-        for i in range(self.frames):
-            open(os.path.join(meas, f"{i:04d}.json"), "w").close()
-        with open(scale_r05_run._override(cmd, "checkpoint"), "w") as f:
-            json.dump({"_checkpoint": {"records": [{}, {}]}}, f)
-        return {"name": name, "rc": 0, "seconds": 1.0, "log": log}
-
-
-def test_runner_collects_every_leg_then_the_held_out_ones(tmp_path):
-    """Each leg on up to 3 processes (the held-out leg has one route-run),
-    the held-out legs of the other weathers after the weather's legs."""
-    runner = _FakeRunner()
-    out = scale_r05_run.collect_stage(runner, str(tmp_path), ["ClearNoon"],
-                                      ["WetNoon", "HardRainNoon"], 2, 3, ["max_ticks=5"])
-    assert runner.names == [f"collect_cross_ClearNoon.shard{k}of3" for k in range(3)] + \
-        [f"collect_loop_ClearNoon.shard{k}of3" for k in range(3)] + [
-            "collect_val_ClearNoon", "collect_val_WetNoon", "collect_val_HardRainNoon"]
-    assert [leg["name"] for leg in out["legs"]] == [
-        "collect_cross_ClearNoon", "collect_loop_ClearNoon", "collect_val_ClearNoon",
-        "collect_val_WetNoon", "collect_val_HardRainNoon"]
-    assert [leg["processes"] for leg in out["legs"]] == [3, 3, 1, 1, 1]
-    assert [leg["route_runs"] for leg in out["legs"]] == [6, 6, 2, 2, 2]
-    assert [leg["of_route_runs"] for leg in out["legs"]] == [30, 4, 1, 1, 1]
-    assert [leg["frames"] for leg in out["legs"]] == [3] * 5 and out["frames"] == 15
-    assert scale_r05.frame_count(str(tmp_path)) == 15
-
-
-def test_runner_compares_pools_byte_for_byte(tmp_path):
-    roots = [tmp_path / "a", tmp_path / "b"]
-    for root in roots:
-        for split in ("train", "eval"):
-            d = root / f"pro_{split}_fmmfn"
-            d.mkdir(parents=True)
-            for i in range(2):
-                (d / f"{i}.pkl").write_bytes(bytes([i, 7]))
-    assert scale_r05_run._same_pools(str(roots[0]), str(roots[1]))
-    (roots[1] / "pro_eval_fmmfn" / "1.pkl").write_bytes(bytes([1, 8]))
-    assert not scale_r05_run._same_pools(str(roots[0]), str(roots[1]))
-
-
-def test_runner_reads_a_training_run(tmp_path):
-    logdir = tmp_path / "mmfn_rad"
-    logdir.mkdir()
-    rows = [{"loss_iter": 3.0, "iter": 1}, {"loss_iter": 2.5, "iter": 2},
-            {"loss": 2.7, "epoch": 1}, {"epoch_minutes": 0.5, "epoch": 0},
-            {"val_loss": 1.25, "epoch": 1}, {"loss": 2.0, "epoch": 2},
-            {"epoch_minutes": 0.25, "epoch": 1}, {"val_loss": 1.5, "epoch": 2},
-            {"peak_memory_gib": 20.5}]
-    (logdir / "metrics.jsonl").write_text("".join(json.dumps(r) + "\n" for r in rows))
-    (logdir / "recent.log").write_text(json.dumps({"bestval": 1.25, "bestval_epoch": 1}))
-    log = tmp_path / "train.log"
-    log.write_text("train frames: 200, val frames: 96\ndevice data cache: 1.50 GiB resident\n")
-    res = scale_r05_run.train_report({"log": str(log)}, str(logdir), 96)
-    assert res["train_samples"] == 200 and res["epoch_seconds"] == [30.0, 15.0]
-    assert res["samples_per_s"] == [192 / 30.0, 192 / 15.0]
-    assert res["loss"] == [2.7, 2.0] and res["val_l1"] == [1.25, 1.5]
-    assert res["first_step_losses"] == [3.0, 2.5]
-    assert res["best_val_l1"] == 1.25 and res["best_epoch"] == 1
-    assert res["device_cache_gib"] == 1.5 and res["peak_memory_gib"] == 20.5

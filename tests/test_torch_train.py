@@ -441,9 +441,12 @@ def _phase2_twice(logdir, tmp_path, entry="mmfn_rad"):
             f"data_folder={tmp_path / 'mmfn'}", f"logdir={logdir}", "device=cpu",
             "batch_size=4", "max_lanes=8", "val_every=1", "save_every=1", "seed=3",
             f"train_agent.entry_point={entry}", "model.n_layer=1", "wandb_mode=disabled"]
-    assert phase2.main(args + ["epochs=2", "device_data_cache=true"]) == 0
+    assert phase2.main(args + ["epochs=2", "device_data_cache=true", "log_every=1"]) == 0
     log = json.loads((logdir / "recent.log").read_text())
     assert (log["epoch"], log["iter"], len(log["val_loss"])) == (2, 4, 2)
+    with open(logdir / "metrics.jsonl") as f:
+        steps = [json.loads(line) for line in f if "loss_iter" in line]
+    assert len(steps) == 4 and all(np.isfinite(r["loss_iter"]) for r in steps)
     for name in ("model.pth", "optim.pth", "best_model.pth", "best_optim.pth",
                  "metrics.jsonl"):
         assert (logdir / name).exists(), name
